@@ -1,0 +1,226 @@
+"""Pipeline CLI of the port (``python -m pintron_tpu_torch.pipeline``).
+
+The counterpart of ``pintron_tpu.pipeline``, with the same flags plus
+``--device``.  With a device, STEP 2 (est-fact) runs the port's
+``run_est_fact`` there, in this process: a CUDA context must never be
+created in a forked child, so the device stage is not run under the
+fork watchdog.  STEPs 3-8 and the cleanup are
+``pintron_tpu.pipeline.pintron_pipeline`` itself, entered with resume
+on so that it finds STEP 2's outputs and runs the rest on its host
+paths.  Without a device the whole run is ``pintron_tpu``'s host path.
+
+``PINTRON_TORCH_PROFILE=<dir>`` writes a ``torch.profiler`` trace of
+the whole pipeline there; the K-band batches carry the spans
+``pintron_kband_full`` and ``pintron_kband_band``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import logging
+import os
+import shutil
+import sys
+import time
+
+from pintron_tpu import pipeline as _host
+
+STEP2_ARTIFACTS = ("raw-multifasta-out.txt", "processed-ests.txt")
+# what pintron_tpu's STEPs 3-7 leave behind; a run without --resume
+# removes them, so that the host orchestrator skips STEP 2 alone
+LATER_ARTIFACTS = ("out-agree.txt", "out-after-intron-agree.txt",
+                   "predicted-introns.txt", "build-ests.txt",
+                   "genomic-exonforCCDS.txt", "isoforms.txt",
+                   "CCDS_transcripts.txt", "VariantGTF.txt")
+
+
+def _start_profiler():
+    prof_dir = os.environ.get("PINTRON_TORCH_PROFILE")
+    if not prof_dir:
+        return None, None
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    # the K-band batches run on dispatch threads, which the profiler's
+    # CPU trace follows only when asked to
+    prof = torch.profiler.profile(
+        activities=acts,
+        experimental_config=torch.profiler._ExperimentalConfig(
+            profile_all_threads=True))
+    prof.start()
+    return prof, prof_dir
+
+
+def pintron_pipeline(workdir: str = ".", device=None, **kwargs) -> None:
+    """Run the eight pipeline steps over ``workdir``.  ``device`` is the
+    torch device of STEP 2's K-band checks (``None``: host only); the
+    other arguments are ``pintron_tpu.pipeline.pintron_pipeline``'s."""
+    for var, use in (("PINTRON_DEVICE", "--device"),
+                     ("PINTRON_JAX_PROFILE", "PINTRON_TORCH_PROFILE")):
+        if os.environ.get(var):
+            raise RuntimeError(f"{var} is set: pintron_tpu would import "
+                               f"JAX.  Unset it; the port uses {use}")
+    call = inspect.signature(_host.pintron_pipeline).bind(workdir, **kwargs)
+    call.apply_defaults()
+    a = call.arguments
+    if device is None:
+        _host.pintron_pipeline(**a)
+        return
+    from pintron_tpu_torch.stages.est_fact import run_est_fact
+
+    def wpath(name: str) -> str:
+        return os.path.join(workdir, name)
+
+    def plog(msg: str) -> None:
+        # the -l/--logfile record pintron_tpu keeps for its own steps
+        if a["pipeline_logfile"]:
+            with open(wpath(a["pipeline_logfile"]), "a") as f:
+                f.write(f"[cmd-2-est-fact] {msg}\n")
+
+    log = a["log"]
+    prof, prof_dir = _start_profiler()
+    # STEP 1: input checks; the stage ABI uses the well-known names
+    for f, name in ((a["genome_filename"], "genomic.txt"),
+                    (a["est_filename"], "ests.txt")):
+        if not os.access(wpath(f), os.R_OK):
+            raise FileNotFoundError(wpath(f))
+        if f != name:
+            shutil.copyfile(wpath(f), wpath(name))
+
+    if a["resume"] and all(os.path.exists(wpath(n))
+                           for n in STEP2_ARTIFACTS):
+        log.info("STEP  2:  [resume] spliced alignments found, skipping")
+    else:
+        log.info("STEP  2:  Computing the spliced alignments on %s...",
+                 device)
+        plog("begin")
+        t = time.time()
+        try:
+            run_est_fact(workdir, config=a["config"], device=device)
+        except BaseException as e:
+            plog(f"FAILED after {time.time() - t:.1f}s: "
+                 f"{type(e).__name__}: {e}")
+            raise
+        plog(f"ok ({time.time() - t:.1f}s)")
+        if not a["resume"]:
+            for name in LATER_ARTIFACTS:
+                if os.path.exists(wpath(name)):
+                    os.remove(wpath(name))
+
+    log.info("STEPs 3-8 on pintron_tpu's host paths")
+    _host.pintron_pipeline(**dict(a, resume=True))
+    if prof is not None:
+        prof.stop()
+        os.makedirs(prof_dir, exist_ok=True)
+        trace = os.path.join(prof_dir, f"pintron-{os.getpid()}.json")
+        prof.export_chrome_trace(trace)
+        log.info("torch profiler trace written to %s", trace)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="pintron-tpu-torch",
+        description="PIntron on PyTorch/CUDA: gene-structure prediction "
+                    "by spliced alignment of ESTs/mRNAs")
+    p.add_argument("--device", default=None,
+                   help="torch device of STEP 2's K-band checks "
+                        "(cuda, cuda:N or cpu); default: host only")
+    p.add_argument("-g", "--genomic", dest="genome_filename",
+                   default="genomic.txt")
+    p.add_argument("-s", "--EST", dest="est_filename", default="ests.txt")
+    p.add_argument("-o", "--output", dest="output_filename",
+                   default="pintron-full-output.json")
+    p.add_argument("-t", "--gtf", dest="gtf_filename",
+                   default="pintron-all-isoforms.gtf")
+    p.add_argument("--extended-gtf", dest="extended_gtf", default=None)
+    p.add_argument("--strict-GTF-compliance", dest="only_cds_annot",
+                   action="store_true", default=False)
+    p.add_argument("-e", "--gene", dest="gene", default="unknown")
+    p.add_argument("-n", "--organism", dest="organism", default="unknown")
+    p.add_argument("-k", "--keep-intermediate-files", dest="no_clean",
+                   action="store_true", default=False)
+    p.add_argument("-l", "--logfile", dest="plogfile",
+                   default="pintron-pipeline-log.txt")
+    p.add_argument("--general-logfile", dest="glogfile",
+                   default="pintron-log.txt")
+    p.add_argument("-b", "--bin-dir", dest="bindir", default="")
+    p.add_argument("-z", "--compress", dest="compress", action="store_true",
+                   default=False)
+    p.add_argument("--pas-tolerance", dest="pas_tolerance", type=int,
+                   default=30)
+    p.add_argument("--set-max-factorization-time", type=int, default=60)
+    p.add_argument("--set-max-factorization-memory", type=int, default=3000)
+    p.add_argument("--set-max-exon-agreement-time", type=int, default=15)
+    p.add_argument("--set-max-intron-agreement-time", type=int, default=30)
+    p.add_argument("--workdir", default=".")
+    p.add_argument("--resume", action="store_true",
+                   help="skip stages whose output artifacts already "
+                        "exist (the inter-stage files are idempotent "
+                        "checkpoints)")
+    args = p.parse_args(argv)
+
+    # dual-sink logging (reference pintron.py:986-1002 prepare_loggers):
+    # DEBUG+ to --general-logfile, INFO+ to the console
+    glogfile = args.glogfile
+    if glogfile and not os.path.isabs(glogfile):
+        glogfile = os.path.join(args.workdir, glogfile)
+    root = logging.getLogger("")
+    root.setLevel(logging.DEBUG)
+    if glogfile:
+        fh = logging.FileHandler(glogfile, mode="w")
+        fh.setLevel(logging.DEBUG)
+        fh.setFormatter(logging.Formatter(
+            "%(levelname)s:%(name)s:%(asctime)s%(msecs)d:%(message)s",
+            datefmt="%Y%m%d-%H%M%S"))
+        root.addHandler(fh)
+    console = logging.StreamHandler()
+    console.setLevel(logging.INFO)
+    console.setFormatter(logging.Formatter(
+        "[%(levelname)-8s] %(asctime)s - %(message)s"))
+    root.addHandler(console)
+
+    if args.bindir:
+        logging.getLogger("pintron").warning(
+            "--bin-dir=%s ignored: all pipeline stages are built in",
+            args.bindir)
+
+    pintron_pipeline(
+        workdir=args.workdir,
+        genome_filename=args.genome_filename,
+        est_filename=args.est_filename,
+        output_filename=args.output_filename,
+        gtf_filename=args.gtf_filename,
+        gene=args.gene,
+        organism=args.organism,
+        only_cds_annot=args.only_cds_annot,
+        extended_gtf_filename=args.extended_gtf or "",
+        pipeline_logfile=args.plogfile or "",
+        pas_tolerance=args.pas_tolerance,
+        keep_intermediate=args.no_clean,
+        resume=args.resume,
+        max_factorization_time=args.set_max_factorization_time,
+        max_factorization_memory=args.set_max_factorization_memory,
+        max_exon_agreement_time=args.set_max_exon_agreement_time,
+        max_intron_agreement_time=args.set_max_intron_agreement_time,
+        device=args.device,
+    )
+    if args.compress:
+        # reference pintron.py:965-972 gzips the JSON and both logfiles
+        import gzip
+        for src in (os.path.join(args.workdir, args.output_filename),
+                    os.path.join(args.workdir, args.plogfile)
+                    if args.plogfile and not os.path.isabs(args.plogfile)
+                    else args.plogfile,
+                    glogfile):
+            if not src or not os.path.exists(src):
+                continue
+            with open(src, "rb") as fi, gzip.open(src + ".gz", "wb") as fo:
+                shutil.copyfileobj(fi, fo)
+            os.remove(src)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

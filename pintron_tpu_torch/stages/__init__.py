@@ -1,0 +1,1 @@
+"""Pipeline stages whose device flow the port owns (STEP 2, est-fact)."""

@@ -1,0 +1,392 @@
+"""est-fact (STEP 2) with the K-band checks on a torch device.
+
+The port's counterpart of the device flow of
+``pintron_tpu.stages.est_fact`` (``_run_units_device`` and the routing
+of ``run_est_fact``), in its K-band-only configuration: the noisy-exon
+K-band problems of the whole EST set are collected natively, evaluated
+in batches by ``pintron_tpu_torch.ops.offload.eval_kband`` (the CUDA
+kernels on a GPU, their plain PyTorch versions on the CPU), and
+pre-filled into the native memo, so the C cascade memo-hits those
+checks.  The endpoint-NW, refine-borders and gap families stay on the
+host C DPs, exactly as the reference runs with
+``PINTRON_DEVICE_{NW,RB,GAP}=0``.  Outputs are byte-identical to the
+host path by construction.
+
+Everything device-free (MEG construction, candidate enumeration, the
+collect pass, the cascade, the writers) is imported from
+``pintron_tpu.stages.est_fact``.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import logging
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+import pintron_tpu.stages.est_fact as _ref
+from pintron_tpu.config import Config
+from pintron_tpu.index.gst import SuffixTree
+from pintron_tpu.io import multifasta as mf
+from pintron_tpu.meg import graph as megmod
+from pintron_tpu.native import get_lib
+from pintron_tpu.stages.est_fact import (TimeoutExpired, _collect_noisy,
+                                         _native_cand_arrays,
+                                         _own_meg_arrays, _unit_for_record,
+                                         build_meg,
+                                         internal_get_est_factorizations,
+                                         write_intronic_edges, write_meg,
+                                         write_multifasta_output)
+from pintron_tpu_torch.ops import kband, offload
+
+OUTPUT_NAMES = ("raw-multifasta-out.txt", "megs.txt",
+                "processed-megs.txt", "processed-megs-info.txt",
+                "processed-ests.txt", "meg-edges.txt")
+
+
+def _native_lib():
+    """The native library with the collect entry the device flow needs;
+    raises when it is unavailable (the port never drops to another path
+    on its own)."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "est_collect_noisy"):
+        raise RuntimeError("the native library (pintron_tpu.native) or its "
+                           "est_collect_noisy entry is unavailable")
+    if not _ref._native_gates():
+        raise RuntimeError("the native est-fact paths are disabled "
+                           "(PINTRON_NO_NATIVE_* or graph logging)")
+    return lib
+
+
+def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
+                      gen_seq_bytes: bytes, config: Config,
+                      ests_path: str, fresh: bool = False):
+    """K-band device flow over every unit of ``ests_path``.
+
+    Rounds mirror the sequential control flow: round 1 runs every
+    unit's first EST, later rounds run the RC copies of units whose
+    forward strand failed plus any timeout-ladder retries
+    (compute-est-fact.c:192-293; main-est-fact.c:247-291).
+
+    Returns the per-record six-blob tuples in file order."""
+    lib = _native_lib()
+    # the native memo fast-paths on the genomic and suffix-tree buffers'
+    # addresses; holding them in the reference module keeps a freed
+    # buffer from being recycled at the same address
+    _ref._GEN_KEEPALIVE = gen_seq_bytes
+    _ref._TEXT_KEEPALIVE = tree.text
+    if fresh and hasattr(lib, "ep_memo_wipe"):
+        lib.ep_memo_wipe()
+
+    with open(ests_path) as fh:
+        ests = mf.read_multifasta(fh)
+    units = [_unit_for_record(gen, e) for e in ests]
+    # per-unit output streams in OUTPUT_NAMES order:
+    # (raw, megs, processed-megs, megs-info, processed-ests, intronic)
+    bufs = [tuple(io.StringIO() for _ in range(6)) for _ in units]
+
+    attempts = [{"unit": i, "est_idx": 0, "inc": 0,
+                 "prev_tp": 0, "prev_te": 0}
+                for i in range(len(units))]
+    while attempts:
+        round_recs = []
+        problems = []        # deduped global device batch
+        prob_index = {}      # (seq_id, coords) -> index into problems
+        next_attempts = []
+
+        for att in attempts:
+            est = units[att["unit"]][att["est_idx"]]
+            t_meg0 = time.monotonic()
+            while True:
+                V, att["inc"], meg_arrays = build_meg(
+                    est, tree, gen_seq_bytes, config, att["inc"])
+                tp, te = megmod.meg_stats(V)
+                same = (att["prev_tp"] > 2 and att["prev_te"] > 0
+                        and (att["prev_tp"] <= tp
+                             or att["prev_te"] <= te))
+                if not same:
+                    break
+                att["inc"] += 1
+            att["prev_tp"], att["prev_te"] = tp, te
+            meg_time = time.monotonic() - t_meg0
+            if meg_arrays is not None:
+                meg_arrays = _own_meg_arrays(meg_arrays)
+                V = megmod.MegFlat(meg_arrays)
+
+            rec = {"att": att, "est": est, "V": V,
+                   "meg_arrays": meg_arrays, "cands": None,
+                   "probmap": None, "meg_time": meg_time,
+                   "deadline": None}
+            if meg_arrays is not None:
+                deadline = None
+                t_enum0 = time.monotonic()
+                if config.max_single_factorization_time:
+                    deadline = (t_enum0
+                                + config.max_single_factorization_time)
+                rec["deadline"] = deadline
+                try:
+                    cands = _native_cand_arrays(
+                        meg_arrays, config, gen_seq_bytes, deadline)
+                except TimeoutExpired:
+                    # enumeration timeout, no facts: bump seed length and
+                    # retry next round (compute-est-fact.c:241-286)
+                    att["inc"] += 1
+                    next_attempts.append(att)
+                    continue
+                # charge this EST only its own enumeration time: the
+                # cascade runs after every other record's enumeration
+                # and the global device batch, so the per-EST budget is
+                # re-based just before the cascade
+                rec["enum_elapsed"] = time.monotonic() - t_enum0
+                if cands is not None:
+                    rec["cands"] = cands
+                    rec["est_bytes"] = est.seq.encode("latin1")
+                    rec["est_orig_bytes"] = est.original_seq.encode(
+                        "latin1")
+            round_recs.append(rec)
+
+        # Noisy-exon collect: every K-band check of the round goes to
+        # the device batch.
+        for rec in round_recs:
+            if rec["cands"] is not None:
+                col = _collect_noisy(
+                    lib, rec["cands"], gen_seq_bytes,
+                    rec["est_bytes"], rec["est_orig_bytes"],
+                    int(rec["meg_arrays"][7]) - 2, config)
+                if col is not None:
+                    coords, probs, seq_id = col
+                    idxs = []
+                    for c, p in zip(coords, probs):
+                        key = (seq_id, int(c[0]), int(c[1]),
+                               int(c[2]), int(c[3]))
+                        j = prob_index.get(key)
+                        if j is None:
+                            j = len(problems)
+                            prob_index[key] = j
+                            problems.append(p)
+                        idxs.append(j)
+                    rec["probmap"] = (coords, idxs)
+            rec["prob_end"] = len(problems)
+
+        # Device evaluation of the round's K-band problems, chunked and
+        # pipelined: chunk i+1's batch runs on the executor thread while
+        # chunk i's cascades run here (small rounds stay one batch).
+        # Problem indices are assigned in record order, so a record only
+        # references problems evaluated by its own or an earlier chunk.
+        # A chunk that timed out (wedged device) leaves its slice
+        # invalid; those records skip the memo pre-fill and the native
+        # cascade recomputes on host (byte-identical).  A chunk that
+        # failed raises.
+        ok_global = np.zeros(len(problems), dtype=np.int64)
+        ok_valid = np.zeros(len(problems), dtype=bool)
+
+        def fill_kband(rec):
+            if rec["probmap"] is not None and rec["probmap"][1]:
+                coords, idxs = rec["probmap"]
+                ivec = np.asarray(idxs, dtype=np.int64)
+                if bool(ok_valid[ivec].all()):
+                    okvec = np.ascontiguousarray(ok_global[ivec])
+                    lib.epm_fill_noisy(
+                        gen_seq_bytes, len(gen_seq_bytes),
+                        rec["est_bytes"], len(rec["est_bytes"]),
+                        rec["est_orig_bytes"],
+                        len(rec["est_orig_bytes"]),
+                        coords.ctypes.data, okvec.ctypes.data,
+                        len(idxs))
+
+        def run_cascade(rec):
+            att = rec["att"]
+            est = rec["est"]
+
+            t_fact0 = time.monotonic()
+            deadline = rec.get("deadline")
+            if deadline is not None:
+                # re-base: wall time spent on OTHER records' work between
+                # this EST's enumeration and its cascade must not count
+                # against its per-EST budget
+                deadline = (t_fact0
+                            + config.max_single_factorization_time
+                            - rec.get("enum_elapsed", 0.0))
+            factorized, timeout = internal_get_est_factorizations(
+                gen, est, config, rec["V"],
+                meg_arrays=rec["meg_arrays"],
+                gen_seq_bytes=gen_seq_bytes,
+                cands=rec["cands"], deadline=deadline)
+            fact_time = time.monotonic() - t_fact0
+
+            raw, megs, pmegs, tmeg, pests, intronic = bufs[att["unit"]]
+            has_facts = (factorized is not None
+                         and factorized.factorizations)
+            if not timeout or has_facts:
+                megs.write("\n\n***********\n\n")
+                megs.write(f">{est.est_id}\n")
+                megs.write(f"{est.original_seq}\n")
+                write_meg(megs, rec["V"])
+            if has_facts:
+                intronic.write(f">{est.est_id}\n")
+                write_intronic_edges(intronic, rec["V"])
+                pmegs.write(f">{est.est_id}\n")
+                pmegs.write(f"{est.original_seq}\n")
+                write_meg(pmegs, rec["V"])
+                tmeg.write(f"{int(rec['meg_time'] * 1e6)} "
+                           f"{int(fact_time * 1e6)} "
+                           f"{len(factorized.factorizations)}\n")
+                write_multifasta_output(gen, factorized, raw,
+                                        config.retain_externals)
+                pests.write(f">{est.est_id}\n{est.original_seq}\n")
+                return  # unit resolved (RC copy skipped)
+            if timeout:
+                att["inc"] += 1
+                next_attempts.append(att)
+                return
+            # resolved with no factorizations: try the RC copy
+            if att["est_idx"] == 0 and len(units[att["unit"]]) > 1:
+                next_attempts.append(
+                    {"unit": att["unit"], "est_idx": 1, "inc": 0,
+                     "prev_tp": 0, "prev_te": 0})
+
+        # two chunks suffice for the cross-chunk pipeline (chunk i+1's
+        # device batch runs while chunk i's cascades run)
+        n_chunks = (1 if len(round_recs) <= 256
+                    else min(2, max(1, len(round_recs) // 128)))
+        step = max(1, (len(round_recs) + n_chunks - 1) // n_chunks)
+        bounds = [(round_recs[c0:c0 + step],
+                   round_recs[min(c0 + step, len(round_recs)) - 1]
+                   ["prob_end"])
+                  for c0 in range(0, len(round_recs), step)]
+
+        import concurrent.futures as _futmod
+        pool = (_futmod.ThreadPoolExecutor(max_workers=1)
+                if len(bounds) > 1 else None)
+
+        # Submit EVERY chunk's batch up front: the single executor
+        # thread evaluates them serially ahead of the cascades, while
+        # this thread works through the host cascades (the native calls
+        # release the GIL).
+        try:
+            launches = []
+            prev_end = 0
+            for recs_c, pend in bounds:
+                lo, hi = prev_end, pend
+                prev_end = pend
+                if hi <= lo:
+                    launches.append(None)
+                elif pool is None:
+                    launches.append(
+                        ("done", offload.eval_kband(problems[lo:hi]),
+                         lo, hi))
+                else:
+                    launches.append(
+                        ("fut", pool.submit(offload.eval_kband,
+                                            problems[lo:hi]), lo, hi))
+            # chunk i+1's batch is on the executor while chunk i's
+            # cascades run here
+            for (recs_c, _pend), launch in zip(bounds, launches):
+                if launch is not None:
+                    kind, val, lo, hi = launch
+                    res = val if kind == "done" else val.result()
+                    if res is not None:
+                        ok_global[lo:hi] = res
+                        ok_valid[lo:hi] = True
+                for rec in recs_c:
+                    fill_kband(rec)
+                for rec in recs_c:
+                    run_cascade(rec)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+        attempts = next_attempts
+
+    offload.STATS["device_runs"] += 1
+    return [tuple(s.getvalue() for s in b) for b in bufs]
+
+
+def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
+                 log=lambda *a: None, device=None) -> None:
+    """The est-fact stage entry point (main-est-fact.c:90-339).
+
+    ``device=None`` runs pintron_tpu's host path (the fork pool).  With
+    a device (``"cuda"``, ``"cuda:N"`` or ``"cpu"``) the K-band checks
+    run there; ``"cuda"`` raises when no CUDA device is available."""
+    if os.environ.get("PINTRON_DEVICE"):
+        raise RuntimeError(
+            "PINTRON_DEVICE is set: pintron_tpu would run its JAX device "
+            "flow.  Unset it; the port selects its device with the "
+            "`device` argument")
+    if device is None:
+        _ref.run_est_fact(workdir, config=config, log=log)
+        return
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device}: torch.cuda.is_available() is "
+                           "false")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    _native_lib()
+    offload.set_device(device)
+
+    sys.setrecursionlimit(1_000_000)
+    from pintron_tpu.runtime import (TimerRegistry, log_info_extended,
+                                     resource_usage_log)
+    from pintron_tpu.utils import write_text
+    timers = TimerRegistry()
+    info_log = os.path.join(workdir, f"info-pid-{os.getpid()}.log")
+
+    def checkpoint(desc: str) -> None:
+        # event+memory checkpoints at the reference's milestones
+        # (main-est-fact.c:115,181,221,233,243,290 -> util.c:221-268)
+        try:
+            log_info_extended(desc, info_log)
+        except OSError:
+            pass
+
+    def wpath(name):
+        return os.path.join(workdir, name)
+
+    checkpoint("started")
+    if config is None:
+        ini = wpath("config.ini")
+        config = Config.from_ini(ini) if os.path.exists(ini) else Config()
+        config.validate()
+    config.dump_ini(wpath("config-dump.ini"))
+
+    timers["io"].start()
+    with open(wpath("genomic.txt")) as fh:
+        gen_list = mf.read_multifasta(fh)
+    if len(gen_list) != 1:
+        raise ValueError(f"genomic.txt holds {len(gen_list)} records, "
+                         "expected 1")
+    gen = gen_list[0]
+    mf.parse_genomic_header(gen)
+    mf.ntails_removal(gen)
+    timers["io"].stop()
+    checkpoint("ests-read-and-preprocessed")
+    gen_seq_bytes = gen.seq.encode("latin1")
+
+    checkpoint("alignment-begin")
+    timers["algorithm"].start()
+    # fresh-locus benchmark mode: wipe the persistent result memo
+    fresh = bool(os.environ.get("PINTRON_FRESH_MEMO"))
+    results = _run_units_device(gen, SuffixTree(gen_seq_bytes),
+                                gen_seq_bytes, config, wpath("ests.txt"),
+                                fresh=fresh)
+    timers["algorithm"].stop()
+    checkpoint("alignment-end")
+    logging.getLogger("pintron").info(
+        "est-fact device flow: %s", json.dumps(
+            {"device": str(device), "stats": offload.STATS,
+             "launches": kband.LAUNCHES}, sort_keys=True))
+
+    timers["io"].start()
+    for k, name in enumerate(OUTPUT_NAMES):
+        write_text(wpath(name), "".join(r[k] for r in results))
+    timers["io"].stop()
+    checkpoint("output-written")
+    timers.log_all()
+    resource_usage_log(level=logging.DEBUG)

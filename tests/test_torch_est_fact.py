@@ -1,0 +1,115 @@
+"""The port's STEP 2 (``pintron_tpu_torch.stages.est_fact``) on the CPU:
+the K-band device flow with the plain PyTorch ops must reproduce the
+golden stage-2 artifacts byte for byte, with the K-band verdicts really
+coming from the device batches."""
+
+import shutil
+import threading
+
+import pytest
+import torch
+
+from pintron_tpu.native import get_lib
+from pintron_tpu_torch.ops import offload
+from pintron_tpu_torch.stages import est_fact
+
+STAGE2 = ("raw-multifasta-out.txt", "processed-ests.txt", "megs.txt",
+          "processed-megs.txt", "meg-edges.txt")
+
+
+def _workdir(golden, case, tmp_path):
+    gold = golden(case)
+    work = tmp_path / case
+    work.mkdir()
+    for name in ("genomic.txt", "ests.txt"):
+        shutil.copy(gold / name, work / name)
+    return gold, work
+
+
+def _assert_stage2_equal(gold, work):
+    for name in STAGE2:
+        assert (work / name).read_bytes() == (gold / name).read_bytes(), \
+            f"{name} differs from golden"
+
+
+@pytest.fixture
+def device_flow(monkeypatch):
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "est_collect_noisy"):
+        pytest.skip("native collect entry unavailable")
+    monkeypatch.delenv("PINTRON_DEVICE", raising=False)
+    monkeypatch.setenv("PINTRON_FRESH_MEMO", "1")
+    monkeypatch.setattr(offload, "_WEDGED", False)
+    offload.reset_stats()
+    return offload
+
+
+@pytest.mark.parametrize("case", ["test-AMBN", "test-TP53"])
+def test_stage2_cpu_device_byte_identical(case, golden, tmp_path,
+                                          device_flow):
+    gold, work = _workdir(golden, case, tmp_path)
+    est_fact.run_est_fact(str(work), device="cpu")
+    assert device_flow.STATS["device_problems"] > 0, \
+        "no K-band problem reached the device batches"
+    assert device_flow.STATS["device_runs"] == 1
+    assert not device_flow.device_wedged()
+    _assert_stage2_equal(gold, work)
+
+
+def test_wedged_device_degrades_byte_identical(golden, tmp_path,
+                                               device_flow, monkeypatch):
+    """A hung K-band batch trips the watchdog; the memo pre-fill is
+    skipped and the native cascade recomputes on host, byte-identically."""
+    gold, work = _workdir(golden, "test-788", tmp_path)
+    release = threading.Event()
+    monkeypatch.setattr(device_flow, "_eval_kband_device",
+                        lambda *_a: release.wait(30))
+    monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "1")
+    try:
+        est_fact.run_est_fact(str(work), device="cpu")
+    finally:
+        release.set()
+    assert device_flow.STATS["device_timeouts"] >= 1
+    _assert_stage2_equal(gold, work)
+
+
+# test-788 evaluates its one chunk inline, TP53 its two chunks on the
+# executor thread
+@pytest.mark.parametrize("case", ["test-788", "test-TP53"])
+def test_failing_batch_raises_out_of_the_stage(case, golden, tmp_path,
+                                               device_flow, monkeypatch):
+    """A K-band batch that fails (build, launch, shape) stops STEP 2;
+    the host DP never stands in for it."""
+    _gold, work = _workdir(golden, case, tmp_path)
+
+    def boom(*_a):
+        raise RuntimeError("kernel fault")
+
+    monkeypatch.setattr(device_flow, "_eval_kband_device", boom)
+    with pytest.raises(RuntimeError, match="kernel fault"):
+        est_fact.run_est_fact(str(work), device="cpu")
+    assert not device_flow.device_wedged()
+    assert not (work / "raw-multifasta-out.txt").exists()
+
+
+def test_host_path_when_no_device(golden, tmp_path, monkeypatch):
+    monkeypatch.delenv("PINTRON_DEVICE", raising=False)
+    monkeypatch.setenv("PINTRON_EST_WORKERS", "2")
+    gold, work = _workdir(golden, "test-AMBN", tmp_path)
+    offload.reset_stats()
+    est_fact.run_est_fact(str(work))
+    assert offload.STATS["device_problems"] == 0
+    _assert_stage2_equal(gold, work)
+
+
+def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    monkeypatch.delenv("PINTRON_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        est_fact.run_est_fact(str(tmp_path), device="cuda")
+
+
+def test_jax_device_flag_is_refused(tmp_path, monkeypatch):
+    monkeypatch.setenv("PINTRON_DEVICE", "1")
+    with pytest.raises(RuntimeError, match="PINTRON_DEVICE"):
+        est_fact.run_est_fact(str(tmp_path), device="cpu")
