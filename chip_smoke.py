@@ -9,16 +9,19 @@ failure (so the script exits non-zero and never prints its last line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the hand-written kernels of pintron_tpu_torch/csrc/ with nvcc;
   3. each kernel against its plain PyTorch version on the card, exact
-     int32 equality on every problem: seeded batches with the edge cases
-     and the production shape (B, rows, W) = (32768, 256, 33); times of
-     both at the shapes the main path gives them;
+     equality on every problem: seeded batches with the edge cases, the
+     K-band production shape (B, rows, W) = (32768, 256, 33) and the
+     shapes the loci give the NW, gap and rowmin kernels; times of both
+     (CUDA events) at the shapes the main path gives them;
   4. the main path: STEP 2 (est-fact) through the port's run_est_fact on
-     the TP53 and issue-13 loci with the K-band checks on the card,
+     the TP53 and issue-13 loci with every DP family on the card,
      byte-compared with tests/golden/; the kernel launch counters are
      reset just before these two runs and read just after them.  Then,
-     with the counters reset again, the offload entry eval_kband on a
-     problem mix held against the native ep_kband verdicts: it reaches
-     the full-matrix route, which no real locus reaches;
+     with the counters reset again, the offload entries on problem
+     mixes held against the host: eval_kband against the native
+     ep_kband verdicts (it reaches the full-matrix route, which no real
+     locus reaches), eval_nw against nw_align_run, eval_gap against
+     gap_align_run and eval_rb against the rows of edit_matrix;
   5. the full pipeline, python -m pintron_tpu_torch.pipeline --device
      cuda, on AMBN, classified against golden like tools/check_e2e.py.
 
@@ -48,6 +51,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 STAGE2_FILES = ("raw-multifasta-out.txt", "processed-ests.txt", "megs.txt",
                 "processed-megs.txt", "meg-edges.txt")
+# the kernels every locus's STEP 2 launches (edit_score_kernel serves
+# the full-matrix K-band route, which no golden locus reaches)
+MAIN_PATH_KERNELS = ("kband", "nw", "gap", "rowmin")
+KERNELS = {
+    "kband": ("pintron_tpu_torch/csrc/kband.cu",
+              "pintron_tpu/ops/pallas_align.py:160"),
+    "edit_score": ("pintron_tpu_torch/csrc/kband.cu",
+                   "pintron_tpu/ops/align.py:144"),
+    "nw": ("pintron_tpu_torch/csrc/nw.cu", "pintron_tpu/ops/align.py:241"),
+    "gap": ("pintron_tpu_torch/csrc/gap.cu", "pintron_tpu/ops/align.py:353"),
+    "rowmin": ("pintron_tpu_torch/csrc/rowmin.cu",
+               "pintron_tpu/ops/align.py:176"),
+}
 
 
 def phase(name):
@@ -119,6 +135,113 @@ def compare(name, kernel, plain, batch, kw, dev):
         raise AssertionError(f"{name}: kernel != plain on {bad} of "
                              f"{got.numel()} problems")
     return err, args
+
+
+def random_pair_batch(rng, B, N, M):
+    """Seeded (est, gen) batch: N/n wildcards, e == g, single
+    characters, empty windows, windows shorter than the padding, and gen
+    as est with an intron inserted."""
+    alpha = np.frombuffer(b"ACGTNn", dtype=np.int8)
+    est = alpha[rng.integers(0, 6, (B, N))]
+    gen = alpha[rng.integers(0, 4, (B, M))]
+    elen = rng.integers(0, N + 1, B).astype(np.int32)
+    glen = rng.integers(0, M + 1, B).astype(np.int32)
+    for b in range(B):
+        n = int(elen[b])
+        mode = b % 5
+        if mode == 0:                     # gen = est + intron
+            cut = int(rng.integers(0, n + 1))
+            intron = alpha[rng.integers(0, 4, int(rng.integers(0, M // 2
+                                                                  + 1)))]
+            seq = np.concatenate([est[b, :cut], intron, est[b, cut:n]])[:M]
+        elif mode == 1:                   # e == g
+            seq = est[b, :min(n, M)]
+        elif mode == 2:                   # single characters
+            elen[b] = min(1, N)
+            seq = gen[b, :int(rng.integers(1, 3))]
+        else:
+            continue
+        gen[b, :len(seq)] = seq
+        glen[b] = len(seq)
+    return est, elen, gen, glen
+
+
+def compare_all(name, got, want, live=None):
+    """Exact equality of every output tensor of a kernel with its plain
+    version (``live`` masks rows that the contract leaves unspecified);
+    returns the largest absolute difference."""
+    torch.cuda.synchronize()
+    err = 0
+    for g, w in zip(got, want):
+        if live is not None:
+            g, w = g[live], w[live]
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max().item()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: kernel != plain on "
+                                 f"{int((g != w).sum().item())} entries")
+    return err
+
+
+def phase_traceback_kernels(dev, gpu):
+    from pintron_tpu_torch.ops import align, traceback
+    rng = np.random.default_rng(20251016)
+    tb = {"nw": (traceback.batch_nw_traceback_cuda, align.batch_nw_traceback),
+          "gap": (traceback.batch_gap_traceback_cuda,
+                  align.batch_gap_traceback)}
+    errs = {"nw": 0, "gap": 0, "rowmin": 0}
+    times = {}
+
+    def run_tb(name, B, N, M, reps=0, plain_reps=1):
+        args = from_numpy_batch(*random_pair_batch(rng, B, N, M),
+                                device=dev)
+        kernel, plain = tb[name]
+        kw = dict(max_n=N, max_m=M)
+        errs[name] = max(errs[name], compare_all(
+            name, kernel(*args, **kw), plain(*args, **kw)))
+        if reps:
+            ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+            pms = cuda_ms(lambda: plain(*args, **kw), plain_reps)
+            times.setdefault(name, (ms, pms))
+            print(f"{name} (B, est, gen) = ({B}, {N}, {M}): kernel "
+                  f"{ms:.3f} ms, plain {pms:.3f} ms  [{gpu}]", flush=True)
+
+    def run_rowmin(B, N, M, reps=0):
+        # (text, pattern) = (gen, est) windows, rows past len2 unspecified
+        est, elen, gen, glen = from_numpy_batch(
+            *random_pair_batch(rng, B, M, N), device=dev)
+        args, kw = (gen, glen, est, elen), dict(max_rows=M)
+        live = (torch.arange(M + 1, device=dev)[None, :]
+                <= elen[:, None].long())
+        errs["rowmin"] = max(errs["rowmin"], compare_all(
+            "rowmin", traceback.batch_edit_rowmin_cuda(*args, **kw),
+            align.batch_edit_rowmin(*args, **kw), live))
+        if reps:
+            ms = cuda_ms(lambda: traceback.batch_edit_rowmin_cuda(*args,
+                                                                  **kw), reps)
+            pms = cuda_ms(lambda: align.batch_edit_rowmin(*args, **kw), 2)
+            times["rowmin"] = (ms, pms)
+            print(f"rowmin (B, text, rows) = ({B}, {N}, {M}): kernel "
+                  f"{ms:.3f} ms, plain {pms:.3f} ms  [{gpu}]", flush=True)
+
+    # edge cases: odd widths, one column per thread and up to 32, the
+    # widest row a kernel takes
+    for B, N, M in ((37, 24, 37), (100, 64, 256), (33, 300, 1000),
+                    (5, 2000, 9000), (3, 40, 16384)):
+        run_tb("nw", B, N, M)
+        run_tb("gap", B, N, M)
+    for B, N, M in ((37, 37, 24), (50, 1024, 64), (7, 16384, 40)):
+        run_rowmin(B, N, M)
+    print("edge-case batches: nw, gap and rowmin kernels == plain on "
+          "every problem", flush=True)
+    # the shapes the loci give the kernels: the TP53 4096 x 4096 NW
+    # bucket at the sub-batch cap, a 256 x 256 NW bucket, the (64, 256)
+    # gap bucket at its largest batch, the largest rb batch
+    run_tb("nw", 16, 4096, 4096, reps=3)
+    run_tb("nw", 729, 256, 256, reps=10, plain_reps=2)
+    run_tb("gap", 788, 64, 256, reps=10, plain_reps=2)
+    run_rowmin(146, 64, 64, reps=10)
+    return errs, times
 
 
 def phase_kernels(dev, gpu):
@@ -225,6 +348,72 @@ def offload_problem_mix(rng):
     return probs
 
 
+def pair_mix(rng):
+    """(est_window, gen_window) problems of every offload route: e == g,
+    gen as est with an intron inserted, unrelated pairs, N/n wildcards,
+    several buckets, and one oversized pair left to the host."""
+    alpha = np.array(list("ACGTNn"))
+    probs = []
+    for i in range(240):
+        e = "".join(rng.choice(alpha, int(rng.integers(1, 120))))
+        if i % 3 == 0:
+            g = e
+        elif i % 3 == 1:
+            cut = int(rng.integers(0, len(e) + 1))
+            g = e[:cut] + "".join(rng.choice(alpha[:4],
+                                             int(rng.integers(0, 900)))) \
+                + e[cut:]
+        else:
+            g = "".join(rng.choice(alpha, int(rng.integers(1, 400))))
+        probs.append((e, g))
+    probs.append(("".join(rng.choice(alpha[:4], 2500)),
+                  "".join(rng.choice(alpha[:4], 2500))))
+    return probs
+
+
+def check_family_mix(offload, probs):
+    """eval_nw, eval_gap and eval_rb on a problem mix against the host
+    C DPs (none of them imports JAX)."""
+    from pintron_tpu.factorize.alignments import (
+        _compute_alignment_uncached, edit_distance_full)
+    from pintron_tpu.factorize.gap_align import \
+        _compute_gap_alignment_uncached
+    from pintron_tpu_torch.ops.align import (gap_traceback_decode,
+                                             nw_traceback_decode)
+    raw = [(e.encode(), g.encode()) for e, g in probs]
+    small = [len(e) * len(g) <= 1 << 21 for e, g in probs]
+    ops, nsteps, ev = offload.eval_nw(raw)
+    if ev.tolist() != small:
+        raise AssertionError("eval_nw: wrong problems evaluated")
+    sm, gops, gsteps, gev = offload.eval_gap(raw)
+    if gev.tolist() != small:
+        raise AssertionError("eval_gap: wrong problems evaluated")
+    for i, (e, g) in enumerate(probs):
+        if not small[i]:
+            continue
+        ref = _compute_alignment_uncached(e, g)
+        if nw_traceback_decode(e, g, ops[i], nsteps[i]) != (ref.est,
+                                                             ref.gen):
+            raise AssertionError(f"eval_nw != nw_align_run on problem {i}")
+        ref = _compute_gap_alignment_uncached(e, g)
+        if gap_traceback_decode(e, g, sm[i], gops[i], gsteps[i]) != (
+                ref.est, ref.gen, ref.factor_cut, ref.intron_start,
+                ref.intron_end, ref.intron_start_on_align,
+                ref.intron_end_on_align):
+            raise AssertionError(f"eval_gap != gap_align_run on problem {i}")
+    rb = [(g, e) for e, g in raw[:200]]
+    vals, pos, rev = offload.eval_rb(rb)
+    if not rev.all():
+        raise AssertionError("eval_rb left a small problem unevaluated")
+    for i, (t, p) in enumerate(rb):
+        M = edit_distance_full(t.decode(), p.decode())
+        if (vals[i, :len(p) + 1].tolist() != M.min(axis=1).tolist()
+                or pos[i, :len(p) + 1].tolist()
+                != M.argmin(axis=1).tolist()):
+            raise AssertionError(f"eval_rb != edit_matrix rows on "
+                                 f"problem {i}")
+
+
 def phase_main_path(dev, gpu):
     from pintron_tpu.native import dp_census, dp_census_reset, get_lib
     from pintron_tpu_torch.ops import kband, offload
@@ -262,6 +451,7 @@ def phase_main_path(dev, gpu):
         launches = dict(kband.LAUNCHES)     # ... and ends here
         kband.reset_launches()
         got_mix = offload.eval_kband(mix)
+        check_family_mix(offload, pair_mix(np.random.default_rng(12)))
         mix_launches = dict(kband.LAUNCHES)
 
         if offload.device_wedged():
@@ -273,7 +463,9 @@ def phase_main_path(dev, gpu):
             raise AssertionError(f"the problem mix left a kernel "
                                  f"unlaunched: {mix_launches}")
         print(f"eval_kband on {len(mix)} mixed problems == native "
-              f"ep_kband; launches {mix_launches}", flush=True)
+              f"ep_kband; eval_nw, eval_gap and eval_rb on mixes == "
+              f"nw_align_run, gap_align_run and edit_matrix; launches "
+              f"{mix_launches}", flush=True)
         for case, (dt, stats, census, lc) in per_case.items():
             gold, work = works[case]
             for name in STAGE2_FILES:
@@ -284,9 +476,12 @@ def phase_main_path(dev, gpu):
                 if g != w:
                     raise AssertionError(f"{case}: {name} differs from "
                                          "golden")
-            if stats["device_problems"] <= 0 or lc["kband"] <= 0:
-                raise AssertionError(f"{case}: no K-band work reached the "
-                                     f"card ({stats}, launches {lc})")
+            for fam, key in (("nw_problems", "nw"), ("gap_problems", "gap"),
+                             ("rb_problems", "rowmin"),
+                             ("device_problems", "kband")):
+                if stats[fam] <= 0 or lc[key] <= 0:
+                    raise AssertionError(f"{case}: {fam} or {key} launches "
+                                         f"0 ({stats}, launches {lc})")
             with open(os.path.join(work, "ests.txt")) as f:
                 n_ests = sum(1 for ln in f if ln.startswith(">"))
             host = sum(census.values())
@@ -295,11 +490,14 @@ def phase_main_path(dev, gpu):
                   f"in {dt:.3f} s = {n_ests / dt:.2f} ESTs/s; "
                   f"device_problems {stats['device_problems']}, "
                   f"device_cells {stats['device_cells']}, host DP cells "
-                  f"{host} {census}, device share {frac:.4f}, launches "
-                  f"{lc}  [{gpu}]", flush=True)
-        if launches["kband"] <= 0:
-            raise AssertionError("kband_kernel never launched on the "
-                                 "main path")
+                  f"{host} {census}, device share {frac:.4f}, nw/gap/rb "
+                  f"problems {stats['nw_problems']}/{stats['gap_problems']}/"
+                  f"{stats['rb_problems']}, launches {lc}  [{gpu}]",
+                  flush=True)
+        for key in MAIN_PATH_KERNELS:
+            if launches[key] <= 0:
+                raise AssertionError(f"{key}_kernel never launched on the "
+                                     "main path")
         print(f"main path launches {launches}", flush=True)
         return launches, mix_launches
     finally:
@@ -336,10 +534,10 @@ def phase_pipeline(dev, gpu):
                 if "est-fact device flow: " in ln:
                     flow = json.loads(ln.split("est-fact device flow: ",
                                                1)[1])
-        if (flow is None or flow["stats"]["device_problems"] <= 0
-                or flow["launches"]["kband"] <= 0):
-            raise AssertionError(f"pipeline STEP 2 did not run the K-band "
-                                 f"kernel: {flow}")
+        if flow is None or min(flow["launches"][k]
+                               for k in MAIN_PATH_KERNELS) <= 0:
+            raise AssertionError(f"pipeline STEP 2 did not run every "
+                                 f"family's kernel: {flow}")
         res = compare_outputs(work, gold)
         if res["json_byte"] and res["gtf_byte"]:
             label = "byte-identical"
@@ -381,6 +579,9 @@ def main() -> int:
 
     phase("3. kernels against their plain versions")
     errs, times = phase_kernels(dev, gpu)
+    tb_errs, tb_times = phase_traceback_kernels(dev, gpu)
+    errs.update(tb_errs)
+    times.update(tb_times)
 
     phase("4. main path: STEP 2 on TP53 and issue-13")
     launches, mix_launches = phase_main_path(dev, gpu)
@@ -390,13 +591,10 @@ def main() -> int:
 
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
-    src = "pintron_tpu_torch/csrc/kband.cu"
-    replaces = {"kband": "pintron_tpu/ops/pallas_align.py:160",
-                "edit_score": "pintron_tpu/ops/align.py:144"}
     kernels, unreached = [], []
-    for key in ("kband", "edit_score"):
+    for key, (src, replaces) in KERNELS.items():
         entry = {"name": f"{key}_kernel", "route": "cuda", "source": src,
-                 "replaces": replaces[key], "launches": launches[key],
+                 "replaces": replaces, "launches": launches[key],
                  "offload_mix_launches": mix_launches[key],
                  "max_abs_err": errs[key], "ms": times[key][0],
                  "plain_ms": times[key][1]}

@@ -7,7 +7,7 @@ path, on the two largest golden loci whose inputs ship in the repo
 Modes, each run on a fresh copy of the locus with a fresh memo
 (``PINTRON_FRESH_MEMO=1``) and byte-compared with ``tests/golden/``:
 
-  cuda   the port's device flow, K-band checks on the GPU kernels;
+  cuda   the port's device flow, every DP family on the GPU kernels;
   cpu    the same flow with the plain PyTorch versions on the host CPU;
   host1  pintron_tpu's host path with one worker (one native call);
   host8  pintron_tpu's host path, 8-worker fork pool.
@@ -18,8 +18,10 @@ backwards on odd ones; the summary keeps every time and the median (the
 upper of the middle two for an even count).  Then one profiled cuda run
 per locus (``torch.profiler``, CPU and CUDA activity, every thread)
 gives the device time by kernel, the device's busy share of the wall
-time, the offload counters and the host DP cells by family
-(``pintron_tpu.native.dp_census``).  Writes one JSON file (default
+time, the host time of the device flow's phases (spans
+``pintron_step2_*``), the offload counters and kernel launches per
+family, the host DP cells by family (``pintron_tpu.native.dp_census``)
+and the device share of the DP cells.  Writes one JSON file (default
 ``chiprun_out/step2_measure.json``) and prints a summary.
 """
 
@@ -96,12 +98,19 @@ def _profile(case_dir: str, tmp: str) -> dict:
     # counted and are kept apart
     by_name = defaultdict(lambda: [0.0, 0])
     spans = defaultdict(lambda: [0.0, 0])
+    host = defaultdict(lambda: [0.0, 0])   # the device flow's host phases
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             acc = spans if evt.name.startswith("pintron_") else by_name
-            acc[evt.name][0] += evt.time_range.elapsed_us() / 1e3
-            acc[evt.name][1] += 1
+        elif evt.name.startswith("pintron_step2_"):
+            acc = host
+        else:
+            continue
+        acc[evt.name][0] += evt.time_range.elapsed_us() / 1e3
+        acc[evt.name][1] += 1
     device_ms = sum(v[0] for v in by_name.values())
+    census = dp_census() or {}
+    dev_cells = offload.STATS["device_cells"]
     return {"wall_ms": wall * 1e3,
             "device_ms": device_ms if by_name else "not measured",
             "device_busy_share": (device_ms / (wall * 1e3)
@@ -110,8 +119,11 @@ def _profile(case_dir: str, tmp: str) -> dict:
                                   for k, v in by_name.items()),
                                  key=lambda x: -x[1]),
             "spans_device_ms": dict(spans),
+            "host_phases_ms": dict(host),
             "stats": dict(offload.STATS), "launches": dict(kband.LAUNCHES),
-            "host_census": dp_census() or {}}
+            "host_census": census,
+            "device_cell_share": dev_cells / (dev_cells
+                                              + sum(census.values()))}
 
 
 def main(argv=None) -> int:
@@ -159,8 +171,10 @@ def main(argv=None) -> int:
             out["profile"][case] = prof
             print(f"{case} profiled cuda run: wall {prof['wall_ms']:.3f} "
                   f"ms, device {prof['device_ms']} ms, busy "
-                  f"{prof['device_busy_share']}, launches "
-                  f"{prof['launches']}  [{gpu}]", flush=True)
+                  f"{prof['device_busy_share']}, device share of DP "
+                  f"cells {prof['device_cell_share']:.4f}, launches "
+                  f"{prof['launches']}, stats {prof['stats']}, host phases "
+                  f"{prof['host_phases_ms']}  [{gpu}]", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

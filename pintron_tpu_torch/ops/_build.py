@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
+Each ``.cu`` source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 build runs at first use, never at import, into ``build/kernels/`` at
 the root of the checkout; the library's name carries a hash of the
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -56,17 +57,42 @@ def _build() -> Path:
         BUILD_INFO.update(path=str(so), seconds=0.0, cached=True, log="")
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in srcs if p.suffix == ".cu"]]
+    tag = f"{so.stem}.tmp{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent builder sees all or none
+    objs, jobs = [], []
+    for p in srcs:
+        if p.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{p.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(p)]
+        objs.append(obj)
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    tmp = so.with_name(f"{tag}.so")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent build sees all or none
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     BUILD_INFO.update(path=str(so), seconds=time.monotonic() - t0,
-                      cached=False, log=res.stdout + res.stderr)
+                      cached=False, log="".join(log))
     return so
 
 
@@ -83,5 +109,11 @@ def load():
         lib.pintron_kband.argtypes = [P, I, P, I, P, P, P, P, P, I, I, I, P]
         lib.pintron_edit_score.restype = I
         lib.pintron_edit_score.argtypes = [P, I, P, I, P, P, P, P, I, I, P]
+        for name in ("pintron_nw", "pintron_gap"):
+            fn = getattr(lib, name)
+            fn.restype = I
+            fn.argtypes = [P, I, P, I, P, P, P, P, P, P, I, P]
+        lib.pintron_rowmin.restype = I
+        lib.pintron_rowmin.argtypes = [P, I, P, I, P, P, P, P, I, I, P]
         _LIB = lib
         return lib

@@ -11,8 +11,9 @@ arguments and results as the plain versions in
     There is no fallback from a failed build or launch to the plain
     version.
 
-``LAUNCHES`` counts kernel launches per kernel.  Launches come from the
-offload's executor thread and its dispatch threads, so the count is
+``LAUNCHES`` counts kernel launches per kernel, for these wrappers and
+for those of ``pintron_tpu_torch.ops.traceback``.  Launches come from
+the offload's executor thread and its dispatch threads, so the count is
 taken under a lock.
 """
 
@@ -24,7 +25,8 @@ import torch
 
 from pintron_tpu_torch.ops import align
 
-LAUNCHES = {"kband": 0, "edit_score": 0}
+LAUNCHES = {"kband": 0, "edit_score": 0, "nw": 0, "gap": 0,
+            "rowmin": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -60,9 +62,9 @@ def _check_batch(seq1, len1, seq2, len2, band=None) -> None:
         raise ValueError("sequence widths must be >= 1")
 
 
-def _cuda_launch_context(dev: torch.device):
+def _cuda_launch_context(dev: torch.device, what: str = "K-band"):
     if dev.type != "cuda":
-        raise ValueError(f"no K-band kernel for device {dev}")
+        raise ValueError(f"no {what} kernel for device {dev}")
     from pintron_tpu_torch.ops import _build
     return _build.load(), torch.cuda.current_stream(dev).cuda_stream
 

@@ -1,7 +1,10 @@
-"""Device evaluation of the est-fact K-band problem batches.
+"""Device evaluation of the est-fact DP problem batches.
 
-The port's counterpart of the K-band part of the JAX package's
-``ops/offload.py``.
+The port's counterpart of the JAX package's ``ops/offload.py`` for the
+four families of STEP 2: K-band (``eval_kband``), endpoint NW
+(``eval_nw``), refine-borders (``eval_rb``) and gap alignment
+(``eval_gap``).
+
 The native collect pass (``est_collect_noisy`` in dp.c) lists every
 noisy-exon K-band check the filter cascade will need (reference:
 est-factorizations.c:1828-1899 -> compute-alignments.c:319-453);
@@ -16,6 +19,13 @@ Routing mirrors ``ep_kband`` (dp.c) exactly:
   * length gap > budget       -> not ok
   * band covers the matrix    -> full edit distance (batched)
   * otherwise                 -> K-band DP (batched)
+
+The NW, rb and gap entries take (est_window, gen_window) or
+(text_window, pattern) pairs from the other native collect passes and
+return the per-problem tracebacks or row tables the native fill calls
+read.  Unlike the JAX package's entries, which decline a whole batch
+when one problem is oversized, they leave each oversized problem to the
+host DP and say which problems they evaluated.
 
 The device is a module setting made by the caller (``set_device``).  On
 a CPU device the wrappers run the plain PyTorch versions.
@@ -34,6 +44,10 @@ import torch
 from pintron_tpu_torch.ops.align import from_numpy_batch
 from pintron_tpu_torch.ops.kband import (banded_edit_distance_cuda,
                                          batch_edit_distance_score_cuda)
+from pintron_tpu_torch.ops.traceback import (MAX_WIDTH,
+                                             batch_edit_rowmin_cuda,
+                                             batch_gap_traceback_cuda,
+                                             batch_nw_traceback_cuda)
 
 
 def _p2(x: int, lo: int = 16) -> int:
@@ -67,14 +81,28 @@ def _encode(seqs: Sequence[bytes], width: int, rows: int = 0):
 
 
 # running counters for benchmarks/diagnostics: problems seen, problems
-# evaluated on the device, DP cells computed there
+# evaluated on the device (all families, and per family for NW, rb and
+# gap), DP cells computed there; counted as the JAX package counts them.
+# Batches of two families run at once (the executor thread's K-band and
+# gap batches beside this thread's NW and rb batches), so the counters
+# are added to under a lock.
 STATS = {"problems": 0, "device_problems": 0, "device_cells": 0,
+         "nw_problems": 0, "gap_problems": 0, "rb_problems": 0,
          "batches": 0, "device_runs": 0, "device_timeouts": 0}
+_STATS_LOCK = threading.Lock()
 
 
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0
+    with _STATS_LOCK:
+        for k in STATS:
+            STATS[k] = 0
+
+
+def tally(**counts: int) -> None:
+    """Add to the STATS counters."""
+    with _STATS_LOCK:
+        for k, n in counts.items():
+            STATS[k] += n
 
 
 _DEVICE = None
@@ -128,7 +156,7 @@ def device_call(fn, *args, what: str = "device batch"):
     t.join(timeout)
     if t.is_alive():
         _WEDGED = True
-        STATS["device_timeouts"] += 1
+        tally(device_timeouts=1)
         logging.getLogger("pintron").warning(
             "%s exceeded the %.0fs device dispatch timeout; the host DP "
             "computes the rest of this process's checks", what, timeout)
@@ -138,14 +166,18 @@ def device_call(fn, *args, what: str = "device batch"):
     return box.get("ok")
 
 
+def _device() -> torch.device:
+    if _DEVICE is None:
+        raise RuntimeError("offload.set_device() was not called")
+    return _DEVICE
+
+
 def eval_kband(problems: List[Tuple[bytes, bytes, int]]):
     """Bounded entry point: evaluate the batch on the device set with
     ``set_device``, or return None when the device is wedged (the
     caller skips the memo pre-fill and the native cascade recomputes on
     host).  A failed batch raises."""
-    if _DEVICE is None:
-        raise RuntimeError("offload.set_device() was not called")
-    return device_call(_eval_kband_device, problems, _DEVICE,
+    return device_call(_eval_kband_device, problems, _device(),
                        what="K-band device batch")
 
 
@@ -169,7 +201,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
         if len(a) - len(b) > ub:
             continue
         rest.append((i, a, b, ub))
-    STATS["problems"] += len(problems)
+    tally(problems=len(problems))
     if not rest:
         return ok
 
@@ -199,10 +231,8 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
                 *from_numpy_batch(s1, l1, s2, l2, device=device),
                 max_rows=M)
         pending.append((items, r))
-        STATS["device_problems"] += len(items)
-        STATS["device_cells"] += sum(
-            len(a) * len(b) for _, a, b, _ in items)
-        STATS["batches"] += 1
+        tally(device_problems=len(items), batches=1,
+              device_cells=sum(len(a) * len(b) for _, a, b, _ in items))
 
     for N, items in sorted(band_groups.items()):
         M = _p4(max(len(b) for _, _, b, _ in items))
@@ -217,10 +247,9 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
                 *from_numpy_batch(s1, l1, s2, l2, band, device=device),
                 max_rows=M, k_max=K)
         pending.append((items, r))
-        STATS["device_problems"] += len(items)
-        STATS["device_cells"] += sum(
-            len(b) * (2 * ub + 1) for _, _a, b, ub in items)
-        STATS["batches"] += 1
+        tally(device_problems=len(items), batches=1,
+              device_cells=sum(len(b) * (2 * ub + 1)
+                               for _, _a, b, ub in items))
 
     for items, r in pending:
         rn = r.cpu().numpy()
@@ -228,3 +257,167 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
             ok[i] = int(dist) <= ub
 
     return ok
+
+
+# ---- the traceback families ------------------------------------------------
+# Per-problem size bounds.  NW and gap keep a (B, N, M) int8 direction
+# scratch per bucket: the area and length bounds are the JAX package's
+# (offload.py:504-506, :575-577), and with the sub-batch cap below they
+# hold a launch's scratch at 256 MB.  rb needs no scratch; its text
+# window is a DP row, at most the kernels' widest (MAX_WIDTH).
+MAX_AREA = 1 << 21
+MAX_LEN_SUM = 8192
+SCRATCH_BYTES = 1 << 28
+
+
+def _fits_traceback(e: bytes, g: bytes) -> bool:
+    return len(e) * len(g) <= MAX_AREA and len(e) + len(g) <= MAX_LEN_SUM
+
+
+def _buckets(problems, evaluated):
+    """Group the evaluated problems by power-of-four (N, M) bucket."""
+    groups = {}
+    for i, (a, b) in enumerate(problems):
+        if evaluated[i]:
+            groups.setdefault((_p4(max(len(a), 1)), _p4(max(len(b), 1))),
+                              []).append(i)
+    return sorted(groups.items())
+
+
+def _traceback_batches(problems, evaluated, device, kernel, span):
+    """Launch every (est, gen) bucket, sub-batched to the scratch cap,
+    before reading any result back.  Returns [(rows, result)] with the
+    results on the host, in launch order."""
+    pending = []
+    for (N, M), rows in _buckets(problems, evaluated):
+        sub = max(1, SCRATCH_BYTES // (N * M))
+        for c0 in range(0, len(rows), sub):
+            chunk = rows[c0:c0 + sub]
+            s1, l1 = _encode([problems[i][0] for i in chunk], N)
+            s2, l2 = _encode([problems[i][1] for i in chunk], M)
+            with torch.profiler.record_function(span):
+                r = kernel(*from_numpy_batch(s1, l1, s2, l2, device=device),
+                           max_n=N, max_m=M)
+            pending.append((np.asarray(chunk), r))
+            tally(batches=1)
+    return [(rows, tuple(t.cpu().numpy() for t in r))
+            for rows, r in pending]
+
+
+def eval_nw(problems: List[Tuple[bytes, bytes]]):
+    """Bounded entry point: batched NW alignments with the traceback for
+    the endpoint family (est-factorizations.c:2127-2301 head/tail
+    trims).  Each problem is an (est_window, gen_window) pair.  Returns
+    (ops, nsteps, evaluated): per-problem op codes (int8, from the END
+    of the alignment backwards, stride = ops.shape[1]), their counts
+    (int64), and which problems were evaluated (an oversized one is
+    left to the host DP).  ``epm_fill_endpoints`` decodes the ops into
+    the host ``nw_align_run``'s alignment.  None when the device is
+    wedged; a failed batch raises."""
+    return device_call(_eval_nw_device, problems, _device(),
+                       what="endpoint NW device batch")
+
+
+def _eval_nw_device(problems: List[Tuple[bytes, bytes]],
+                    device: torch.device):
+    evaluated = np.array([_fits_traceback(e, g) for e, g in problems],
+                         dtype=bool)
+    L = max((len(e) + len(g) for e, g in problems), default=1)
+    all_ops = np.zeros((len(problems), L), dtype=np.int8)
+    all_n = np.zeros(len(problems), dtype=np.int64)
+    tally(problems=len(problems))
+    on_card = evaluated.copy()
+    for i, (e, g) in enumerate(problems):
+        if evaluated[i] and e == g:
+            # all-diagonal optimum (the host's shortcut): len(e) diag ops
+            all_n[i] = len(e)
+            on_card[i] = False
+    for rows, (_score, ops, nsteps) in _traceback_batches(
+            problems, on_card, device, batch_nw_traceback_cuda,
+            "pintron_nw"):
+        w = min(L, ops.shape[1])
+        all_ops[rows, :w] = ops[:, :w]
+        all_n[rows] = nsteps
+        tally(device_problems=len(rows), nw_problems=len(rows),
+              device_cells=sum(len(problems[i][0]) * len(problems[i][1])
+                               for i in rows))
+    return all_ops, all_n, evaluated
+
+
+def eval_gap(problems: List[Tuple[bytes, bytes]]):
+    """Bounded entry point: batched 3-matrix L/G/R gap alignments with
+    the traceback for the intron-refinement family
+    (refine-intron.c:560-806).  Each problem is an (est_window,
+    gen_window) pair from est_collect_introns.  Returns (sm, ops,
+    nsteps, evaluated): per-problem start matrix (int64), op codes
+    (int8, from the END backwards, stride = ops.shape[1]), their counts
+    (int64), and which problems were evaluated (an oversized one is
+    left to the host DP).  The caller installs them in the window-keyed
+    lookaside (``ri_lookaside_set``) that the native cascade decodes.
+    None when the device is wedged; a failed batch raises."""
+    return device_call(_eval_gap_device, problems, _device(),
+                       what="gap-align device batch")
+
+
+def _eval_gap_device(problems: List[Tuple[bytes, bytes]],
+                     device: torch.device):
+    evaluated = np.array([_fits_traceback(e, g) for e, g in problems],
+                         dtype=bool)
+    L = max((len(e) + len(g) for e, g in problems), default=1)
+    all_sm = np.zeros(len(problems), dtype=np.int64)
+    all_ops = np.zeros((len(problems), L), dtype=np.int8)
+    all_n = np.zeros(len(problems), dtype=np.int64)
+    tally(problems=len(problems))
+    for rows, (sm, ops, nsteps) in _traceback_batches(
+            problems, evaluated, device, batch_gap_traceback_cuda,
+            "pintron_gap"):
+        w = min(L, ops.shape[1])
+        all_ops[rows, :w] = ops[:, :w]
+        all_sm[rows] = sm
+        all_n[rows] = nsteps
+        tally(device_problems=len(rows), gap_problems=len(rows),
+              device_cells=sum(3 * (len(problems[i][0]) + 1)
+                               * (len(problems[i][1]) + 1) for i in rows))
+    return all_sm, all_ops, all_n, evaluated
+
+
+def eval_rb(problems: List[Tuple[bytes, bytes]]):
+    """Bounded entry point: batched refine-borders row tables.  Each
+    problem is a (text_window, pattern) pair, the forward or reversed
+    pass of one gap problem (refine.c:105-192); the caller submits both
+    passes as independent problems.  Returns (vals, pos, evaluated):
+    int64 arrays of shape (n, stride), stride = max(len(pattern)) + 1,
+    with the per-row minima and FIRST minimal positions of each
+    problem's (len(pattern)+1)-row edit DP (rows past it unspecified),
+    and which problems were evaluated (a text window wider than
+    MAX_WIDTH is left to the host DP).  None when the device is wedged;
+    a failed batch raises."""
+    return device_call(_eval_rb_device, problems, _device(),
+                       what="refine-borders device batch")
+
+
+def _eval_rb_device(problems: List[Tuple[bytes, bytes]],
+                    device: torch.device):
+    evaluated = np.array([len(t) <= MAX_WIDTH for t, _p in problems],
+                         dtype=bool)
+    stride = max((len(p) for _, p in problems), default=0) + 1
+    vals = np.zeros((len(problems), stride), dtype=np.int64)
+    pos = np.zeros((len(problems), stride), dtype=np.int64)
+    tally(problems=len(problems))
+    pending = []
+    for (N, M), rows in _buckets(problems, evaluated):
+        s1, l1 = _encode([problems[i][0] for i in rows], N)
+        s2, l2 = _encode([problems[i][1] for i in rows], M)
+        with torch.profiler.record_function("pintron_rowmin"):
+            r = batch_edit_rowmin_cuda(
+                *from_numpy_batch(s1, l1, s2, l2, device=device),
+                max_rows=M)
+        pending.append((np.asarray(rows), r))
+        tally(device_problems=len(rows), rb_problems=len(rows), batches=1,
+              device_cells=sum((len(problems[i][0]) + 1)
+                               * (len(problems[i][1]) + 1) for i in rows))
+    for rows, (v, q) in pending:
+        w = min(stride, v.shape[1])
+        vals[rows, :w] = v[:, :w].cpu().numpy()
+        pos[rows, :w] = q[:, :w].cpu().numpy()
+    return vals, pos, evaluated

@@ -1,0 +1,109 @@
+"""Wrappers of the row-parallel CUDA kernels of the NW, gap and
+refine-borders families (``csrc/nw.cu``, ``csrc/gap.cu``,
+``csrc/rowmin.cu``).
+
+Counterparts of the JAX package's XLA ops ``batch_nw_traceback``,
+``batch_gap_traceback`` and ``batch_edit_rowmin`` (``ops/align.py``).
+Same arguments and results as the plain versions in
+``pintron_tpu_torch.ops.align``:
+
+  * a batch on the CPU runs the plain version;
+  * a batch on a CUDA device launches the kernel, or the call raises.
+    There is no fallback from a failed build or launch to the plain
+    version.
+
+Launches are counted in ``pintron_tpu_torch.ops.kband.LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pintron_tpu_torch.ops import align
+from pintron_tpu_torch.ops.kband import (_check_batch, _count,
+                                         _cuda_launch_context)
+
+# widest DP row a kernel takes: 512 threads x 32 columns each
+# (csrc/rowscan.cuh)
+MAX_WIDTH = 16384
+
+
+def _check_width(name: str, width: int) -> None:
+    if width > MAX_WIDTH:
+        raise ValueError(f"{name}: {width} columns > {MAX_WIDTH}, the widest "
+                         "row the kernels take")
+
+
+def _traceback_cuda(key: str, est, elen, gen, glen, max_n: int,
+                    max_m: int):
+    """Launch ``{key}_kernel`` (``pintron_{key}`` in the library)."""
+    align._check_widths(est, gen, max_n, max_m)
+    _check_width(key, max_m)
+    dev = est.device
+    B = est.shape[0]
+    head = torch.empty(B, dtype=torch.int32, device=dev)
+    ops = torch.empty((B, max_n + max_m), dtype=torch.int8, device=dev)
+    nsteps = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return head, ops, nsteps
+    lib, stream = _cuda_launch_context(dev, key)
+    dirs = torch.empty((B, max_n, max_m), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"pintron_{key}")(
+            est.data_ptr(), max_n, gen.data_ptr(), max_m, elen.data_ptr(),
+            glen.data_ptr(), dirs.data_ptr(), head.data_ptr(),
+            ops.data_ptr(), nsteps.data_ptr(), B, stream)
+    if err:
+        raise RuntimeError(f"{key}_kernel launch failed: cudaError {err}")
+    _count(key)
+    return head, ops, nsteps
+
+
+def batch_nw_traceback_cuda(est, elen, gen, glen, *, max_n: int,
+                            max_m: int):
+    """NW with the traceback; see ``align.batch_nw_traceback``.
+    Returns (score, ops, nsteps)."""
+    _check_batch(est, elen, gen, glen)
+    if est.device.type == "cpu":
+        return align.batch_nw_traceback(est, elen, gen, glen, max_n=max_n,
+                                        max_m=max_m)
+    return _traceback_cuda("nw", est, elen, gen, glen, max_n, max_m)
+
+
+def batch_gap_traceback_cuda(est, elen, gen, glen, *, max_n: int,
+                             max_m: int):
+    """Gap alignment with the traceback; see
+    ``align.batch_gap_traceback``.  Returns (sm, ops, nsteps)."""
+    _check_batch(est, elen, gen, glen)
+    if est.device.type == "cpu":
+        return align.batch_gap_traceback(est, elen, gen, glen, max_n=max_n,
+                                         max_m=max_m)
+    return _traceback_cuda("gap", est, elen, gen, glen, max_n, max_m)
+
+
+def batch_edit_rowmin_cuda(seq1, len1, seq2, len2, *, max_rows: int):
+    """Per-row minima and first argmins of the edit DP; see
+    ``align.batch_edit_rowmin``.  Returns (vals, pos)."""
+    _check_batch(seq1, len1, seq2, len2)
+    if max_rows < 0:
+        raise ValueError("max_rows must be >= 0")
+    dev = seq1.device
+    if dev.type == "cpu":
+        return align.batch_edit_rowmin(seq1, len1, seq2, len2,
+                                       max_rows=max_rows)
+    B, N = seq1.shape
+    _check_width("rowmin", N)
+    vals = torch.empty((B, max_rows + 1), dtype=torch.int32, device=dev)
+    pos = torch.empty_like(vals)
+    if B == 0:
+        return vals, pos
+    lib, stream = _cuda_launch_context(dev, "rowmin")
+    with torch.cuda.device(dev):
+        err = lib.pintron_rowmin(
+            seq1.data_ptr(), N, seq2.data_ptr(), seq2.shape[1],
+            len1.data_ptr(), len2.data_ptr(), vals.data_ptr(),
+            pos.data_ptr(), B, max_rows, stream)
+    if err:
+        raise RuntimeError(f"rowmin_kernel launch failed: cudaError {err}")
+    _count("rowmin")
+    return vals, pos

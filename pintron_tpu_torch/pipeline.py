@@ -10,8 +10,12 @@ on so that it finds STEP 2's outputs and runs the rest on its host
 paths.  Without a device the whole run is ``pintron_tpu``'s host path.
 
 ``PINTRON_TORCH_PROFILE=<dir>`` writes a ``torch.profiler`` trace of
-the whole pipeline there; the K-band batches carry the spans
-``pintron_kband_full`` and ``pintron_kband_band``.
+the whole pipeline there; the device batches carry the spans
+``pintron_kband_full``, ``pintron_kband_band``, ``pintron_nw``,
+``pintron_gap`` and ``pintron_rowmin``.  STEP 2 logs one line,
+``est-fact device flow: {...}``, with the offload counters per family,
+the kernel launches, the host DP cells by family and the device share
+of the DP cells.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ def _start_profiler():
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    # the K-band batches run on dispatch threads, which the profiler's
+    # the device batches run on dispatch threads, which the profiler's
     # CPU trace follows only when asked to
     prof = torch.profiler.profile(
         activities=acts,
@@ -55,7 +59,7 @@ def _start_profiler():
 
 def pintron_pipeline(workdir: str = ".", device=None, **kwargs) -> None:
     """Run the eight pipeline steps over ``workdir``.  ``device`` is the
-    torch device of STEP 2's K-band checks (``None``: host only); the
+    torch device of STEP 2's DP batches (``None``: host only); the
     other arguments are ``pintron_tpu.pipeline.pintron_pipeline``'s."""
     for var, use in (("PINTRON_DEVICE", "--device"),
                      ("PINTRON_JAX_PROFILE", "PINTRON_TORCH_PROFILE")):
@@ -125,7 +129,7 @@ def main(argv=None) -> int:
         description="PIntron on PyTorch/CUDA: gene-structure prediction "
                     "by spliced alignment of ESTs/mRNAs")
     p.add_argument("--device", default=None,
-                   help="torch device of STEP 2's K-band checks "
+                   help="torch device of STEP 2's DP batches "
                         "(cuda, cuda:N or cpu); default: host only")
     p.add_argument("-g", "--genomic", dest="genome_filename",
                    default="genomic.txt")

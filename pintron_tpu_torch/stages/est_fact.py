@@ -1,16 +1,26 @@
-"""est-fact (STEP 2) with the K-band checks on a torch device.
+"""est-fact (STEP 2) with every DP family on a torch device.
 
 The port's counterpart of the device flow of
 ``pintron_tpu.stages.est_fact`` (``_run_units_device`` and the routing
-of ``run_est_fact``), in its K-band-only configuration: the noisy-exon
-K-band problems of the whole EST set are collected natively, evaluated
-in batches by ``pintron_tpu_torch.ops.offload.eval_kband`` (the CUDA
-kernels on a GPU, their plain PyTorch versions on the CPU), and
-pre-filled into the native memo, so the C cascade memo-hits those
-checks.  The endpoint-NW, refine-borders and gap families stay on the
-host C DPs, exactly as the reference runs with
-``PINTRON_DEVICE_{NW,RB,GAP}=0``.  Outputs are byte-identical to the
-host path by construction.
+of ``run_est_fact``), as the JAX package runs it with every family
+forced on (``PINTRON_DEVICE_{NW,RB,GAP,KBAND}=1``).  Per round, the
+native collect passes list the DP problems of the whole EST set, the
+offload (``pintron_tpu_torch.ops.offload``) evaluates them in batches
+(the CUDA kernels on a GPU, their plain PyTorch versions on the CPU),
+and the results go where the C cascade reads them:
+
+  * endpoint NW: ``eval_nw``, then the tag-1/2 memo
+    (``epm_fill_endpoints``), before the noisy collect;
+  * K-band: ``eval_kband``, then the noisy-exon memo
+    (``epm_fill_noisy``);
+  * refine-borders: per chunk, ``eval_rb``, then the tag-10 memo
+    (``epm_fill_rb``);
+  * gap alignment: per chunk, ``eval_gap``, then the window-keyed
+    lookaside (``ri_lookaside_set``) around each cascade.
+
+A problem the offload did not evaluate (an oversized one) is left out
+of the fill, and the cascade computes it on the host.  Outputs are
+byte-identical to the host path by construction.
 
 Everything device-free (MEG construction, candidate enumeration, the
 collect pass, the cascade, the writers) is imported from
@@ -35,8 +45,10 @@ from pintron_tpu.config import Config
 from pintron_tpu.index.gst import SuffixTree
 from pintron_tpu.io import multifasta as mf
 from pintron_tpu.meg import graph as megmod
-from pintron_tpu.native import get_lib
-from pintron_tpu.stages.est_fact import (TimeoutExpired, _collect_noisy,
+from pintron_tpu.native import dp_census, dp_census_reset, get_lib
+from pintron_tpu.stages.est_fact import (TimeoutExpired, _collect_endpoints,
+                                         _collect_gaps, _collect_introns,
+                                         _collect_noisy,
                                          _native_cand_arrays,
                                          _own_meg_arrays, _unit_for_record,
                                          build_meg,
@@ -45,19 +57,33 @@ from pintron_tpu.stages.est_fact import (TimeoutExpired, _collect_noisy,
                                          write_multifasta_output)
 from pintron_tpu_torch.ops import kband, offload
 
+# host spans of the device flow's phases, read by measure_step2 from a
+# torch.profiler trace (no cost when no profiler runs)
+_span = torch.profiler.record_function
+
 OUTPUT_NAMES = ("raw-multifasta-out.txt", "megs.txt",
                 "processed-megs.txt", "processed-megs-info.txt",
                 "processed-ests.txt", "meg-edges.txt")
 
 
+# the native collect, fill and lookaside entries the device flow calls
+NATIVE_ENTRIES = ("est_collect_noisy", "est_collect_endpoints",
+                  "est_collect_gaps", "est_collect_introns", "epm_fill_noisy",
+                  "epm_fill_endpoints", "epm_fill_rb", "ri_lookaside_set",
+                  "ri_lookaside_clear")
+
+
 def _native_lib():
-    """The native library with the collect entry the device flow needs;
+    """The native library with the entries the device flow needs;
     raises when it is unavailable (the port never drops to another path
     on its own)."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "est_collect_noisy"):
-        raise RuntimeError("the native library (pintron_tpu.native) or its "
-                           "est_collect_noisy entry is unavailable")
+    if lib is None:
+        raise RuntimeError("the native library (pintron_tpu.native) is "
+                           "unavailable")
+    missing = [n for n in NATIVE_ENTRIES if not hasattr(lib, n)]
+    if missing:
+        raise RuntimeError(f"the native library lacks {missing}")
     if not _ref._native_gates():
         raise RuntimeError("the native est-fact paths are disabled "
                            "(PINTRON_NO_NATIVE_* or graph logging)")
@@ -67,7 +93,7 @@ def _native_lib():
 def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                       gen_seq_bytes: bytes, config: Config,
                       ests_path: str, fresh: bool = False):
-    """K-band device flow over every unit of ``ests_path``.
+    """Device flow over every unit of ``ests_path``.
 
     Rounds mirror the sequential control flow: round 1 runs every
     unit's first EST, later rounds run the RC copies of units whose
@@ -100,79 +126,83 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
         prob_index = {}      # (seq_id, coords) -> index into problems
         next_attempts = []
 
-        for att in attempts:
-            est = units[att["unit"]][att["est_idx"]]
-            t_meg0 = time.monotonic()
-            while True:
-                V, att["inc"], meg_arrays = build_meg(
-                    est, tree, gen_seq_bytes, config, att["inc"])
-                tp, te = megmod.meg_stats(V)
-                same = (att["prev_tp"] > 2 and att["prev_te"] > 0
-                        and (att["prev_tp"] <= tp
-                             or att["prev_te"] <= te))
-                if not same:
-                    break
-                att["inc"] += 1
-            att["prev_tp"], att["prev_te"] = tp, te
-            meg_time = time.monotonic() - t_meg0
-            if meg_arrays is not None:
-                meg_arrays = _own_meg_arrays(meg_arrays)
-                V = megmod.MegFlat(meg_arrays)
-
-            rec = {"att": att, "est": est, "V": V,
-                   "meg_arrays": meg_arrays, "cands": None,
-                   "probmap": None, "meg_time": meg_time,
-                   "deadline": None}
-            if meg_arrays is not None:
-                deadline = None
-                t_enum0 = time.monotonic()
-                if config.max_single_factorization_time:
-                    deadline = (t_enum0
-                                + config.max_single_factorization_time)
-                rec["deadline"] = deadline
-                try:
-                    cands = _native_cand_arrays(
-                        meg_arrays, config, gen_seq_bytes, deadline)
-                except TimeoutExpired:
-                    # enumeration timeout, no facts: bump seed length and
-                    # retry next round (compute-est-fact.c:241-286)
+        with _span("pintron_step2_meg_enum"):
+            for att in attempts:
+                est = units[att["unit"]][att["est_idx"]]
+                t_meg0 = time.monotonic()
+                while True:
+                    V, att["inc"], meg_arrays = build_meg(
+                        est, tree, gen_seq_bytes, config, att["inc"])
+                    tp, te = megmod.meg_stats(V)
+                    same = (att["prev_tp"] > 2 and att["prev_te"] > 0
+                            and (att["prev_tp"] <= tp
+                                 or att["prev_te"] <= te))
+                    if not same:
+                        break
                     att["inc"] += 1
-                    next_attempts.append(att)
-                    continue
-                # charge this EST only its own enumeration time: the
-                # cascade runs after every other record's enumeration
-                # and the global device batch, so the per-EST budget is
-                # re-based just before the cascade
-                rec["enum_elapsed"] = time.monotonic() - t_enum0
-                if cands is not None:
-                    rec["cands"] = cands
-                    rec["est_bytes"] = est.seq.encode("latin1")
-                    rec["est_orig_bytes"] = est.original_seq.encode(
-                        "latin1")
-            round_recs.append(rec)
+                att["prev_tp"], att["prev_te"] = tp, te
+                meg_time = time.monotonic() - t_meg0
+                if meg_arrays is not None:
+                    meg_arrays = _own_meg_arrays(meg_arrays)
+                    V = megmod.MegFlat(meg_arrays)
 
-        # Noisy-exon collect: every K-band check of the round goes to
-        # the device batch.
-        for rec in round_recs:
-            if rec["cands"] is not None:
-                col = _collect_noisy(
-                    lib, rec["cands"], gen_seq_bytes,
-                    rec["est_bytes"], rec["est_orig_bytes"],
-                    int(rec["meg_arrays"][7]) - 2, config)
-                if col is not None:
-                    coords, probs, seq_id = col
-                    idxs = []
-                    for c, p in zip(coords, probs):
-                        key = (seq_id, int(c[0]), int(c[1]),
-                               int(c[2]), int(c[3]))
-                        j = prob_index.get(key)
-                        if j is None:
-                            j = len(problems)
-                            prob_index[key] = j
-                            problems.append(p)
-                        idxs.append(j)
-                    rec["probmap"] = (coords, idxs)
-            rec["prob_end"] = len(problems)
+                rec = {"att": att, "est": est, "V": V,
+                       "meg_arrays": meg_arrays, "cands": None,
+                       "probmap": None, "meg_time": meg_time,
+                       "deadline": None}
+                if meg_arrays is not None:
+                    deadline = None
+                    t_enum0 = time.monotonic()
+                    if config.max_single_factorization_time:
+                        deadline = (t_enum0
+                                    + config.max_single_factorization_time)
+                    rec["deadline"] = deadline
+                    try:
+                        cands = _native_cand_arrays(
+                            meg_arrays, config, gen_seq_bytes, deadline)
+                    except TimeoutExpired:
+                        # enumeration timeout, no facts: bump seed length and
+                        # retry next round (compute-est-fact.c:241-286)
+                        att["inc"] += 1
+                        next_attempts.append(att)
+                        continue
+                    # charge this EST only its own enumeration time: the
+                    # cascade runs after every other record's enumeration
+                    # and the global device batch, so the per-EST budget is
+                    # re-based just before the cascade
+                    rec["enum_elapsed"] = time.monotonic() - t_enum0
+                    if cands is not None:
+                        rec["cands"] = cands
+                        rec["est_bytes"] = est.seq.encode("latin1")
+                        rec["est_orig_bytes"] = est.original_seq.encode(
+                            "latin1")
+                round_recs.append(rec)
+
+        _offload_endpoints(lib, round_recs, gen_seq_bytes)
+
+        # Noisy-exon collect (it memo-hits the endpoints filled above):
+        # every K-band check of the round goes to the device batch.
+        with _span("pintron_step2_collect_noisy"):
+            for rec in round_recs:
+                if rec["cands"] is not None:
+                    col = _collect_noisy(
+                        lib, rec["cands"], gen_seq_bytes,
+                        rec["est_bytes"], rec["est_orig_bytes"],
+                        int(rec["meg_arrays"][7]) - 2, config)
+                    if col is not None:
+                        coords, probs, seq_id = col
+                        idxs = []
+                        for c, p in zip(coords, probs):
+                            key = (seq_id, int(c[0]), int(c[1]),
+                                   int(c[2]), int(c[3]))
+                            j = prob_index.get(key)
+                            if j is None:
+                                j = len(problems)
+                                prob_index[key] = j
+                                problems.append(p)
+                            idxs.append(j)
+                        rec["probmap"] = (coords, idxs)
+                rec["prob_end"] = len(problems)
 
         # Device evaluation of the round's K-band problems, chunked and
         # pipelined: chunk i+1's batch runs on the executor thread while
@@ -200,6 +230,7 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                         coords.ctypes.data, okvec.ctypes.data,
                         len(idxs))
 
+        @_span("pintron_step2_cascade")
         def run_cascade(rec):
             att = rec["att"]
             est = rec["est"]
@@ -213,11 +244,22 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                 deadline = (t_fact0
                             + config.max_single_factorization_time
                             - rec.get("enum_elapsed", 0.0))
-            factorized, timeout = internal_get_est_factorizations(
-                gen, est, config, rec["V"],
-                meg_arrays=rec["meg_arrays"],
-                gen_seq_bytes=gen_seq_bytes,
-                cands=rec["cands"], deadline=deadline)
+            la = rec.get("ri_look")
+            if la is not None:
+                recsc, arena_np, smc, opsc, nc, stride = la
+                lib.ri_lookaside_set(
+                    recsc.ctypes.data, len(recsc), arena_np.ctypes.data,
+                    smc.ctypes.data, opsc.ctypes.data, nc.ctypes.data,
+                    stride)
+            try:
+                factorized, timeout = internal_get_est_factorizations(
+                    gen, est, config, rec["V"],
+                    meg_arrays=rec["meg_arrays"],
+                    gen_seq_bytes=gen_seq_bytes,
+                    cands=rec["cands"], deadline=deadline)
+            finally:
+                if la is not None:
+                    lib.ri_lookaside_clear()
             fact_time = time.monotonic() - t_fact0
 
             raw, megs, pmegs, tmeg, pests, intronic = bufs[att["unit"]]
@@ -265,10 +307,10 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
         pool = (_futmod.ThreadPoolExecutor(max_workers=1)
                 if len(bounds) > 1 else None)
 
-        # Submit EVERY chunk's batch up front: the single executor
-        # thread evaluates them serially ahead of the cascades, while
-        # this thread works through the host cascades (the native calls
-        # release the GIL).
+        # Submit EVERY chunk's K-band batch up front: the single
+        # executor thread evaluates them serially ahead of the cascades,
+        # while this thread works through the host cascades (the native
+        # calls release the GIL).
         try:
             launches = []
             prev_end = 0
@@ -285,8 +327,10 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                     launches.append(
                         ("fut", pool.submit(offload.eval_kband,
                                             problems[lo:hi]), lo, hi))
-            # chunk i+1's batch is on the executor while chunk i's
-            # cascades run here
+            # Software pipeline: chunk i's gap batch is in flight on the
+            # executor thread while chunk i-1's cascades run here (and
+            # while chunk i+1's collect and rb work proceeds).
+            staged = None   # (recs_c, pending gap batch) awaiting cascades
             for (recs_c, _pend), launch in zip(bounds, launches):
                 if launch is not None:
                     kind, val, lo, hi = launch
@@ -296,15 +340,178 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                         ok_valid[lo:hi] = True
                 for rec in recs_c:
                     fill_kband(rec)
-                for rec in recs_c:
+                _offload_rb(lib, recs_c, gen_seq_bytes, config)
+                prep = _prep_introns(lib, recs_c, gen_seq_bytes, config,
+                                     pool)
+                if staged is not None:
+                    _resolve_introns(staged[1])
+                    for rec in staged[0]:
+                        run_cascade(rec)
+                staged = (recs_c, prep)
+            if staged is not None:
+                _resolve_introns(staged[1])
+                for rec in staged[0]:
                     run_cascade(rec)
         finally:
             if pool is not None:
                 pool.shutdown(wait=True)
         attempts = next_attempts
 
-    offload.STATS["device_runs"] += 1
+    offload.tally(device_runs=1)
     return [tuple(s.getvalue() for s in b) for b in bufs]
+
+
+@_span("pintron_step2_nw_phase")
+def _offload_endpoints(lib, round_recs, gen_seq_bytes: bytes) -> None:
+    """Endpoint-NW phase of a round: collect the head/tail alignment
+    problems from the candidate arrays, evaluate them in one device
+    batch with the traceback, and pre-fill the tag-1/2 memo with the
+    evaluated ones, so the noisy collect pass memo-hits them."""
+    per_rec = []
+    problems = []
+    for rec in round_recs:
+        if rec["cands"] is None or rec["meg_arrays"] is None:
+            continue
+        recs = _collect_endpoints(
+            lib, rec["cands"], gen_seq_bytes, rec["est_bytes"],
+            rec["est_orig_bytes"], int(rec["meg_arrays"][7]) - 2)
+        if recs is None or not len(recs):
+            continue
+        base = len(problems)
+        eb = rec["est_bytes"]
+        for r in recs:
+            problems.append(
+                (eb[int(r[5]):int(r[5]) + int(r[6])],
+                 gen_seq_bytes[int(r[7]):int(r[7]) + int(r[8])]))
+        per_rec.append((rec, recs, base))
+    if not problems:
+        return
+    res = offload.eval_nw(problems)
+    if res is None:
+        return
+    ops, nsteps, evaluated = res
+    stride = ops.shape[1]
+    for rec, recs, base in per_rec:
+        keep = np.flatnonzero(evaluated[base:base + len(recs)])
+        if not len(keep):
+            continue
+        recsc = np.ascontiguousarray(recs[keep])
+        ops_c = np.ascontiguousarray(ops[base + keep])
+        n_c = np.ascontiguousarray(nsteps[base + keep], dtype=np.int64)
+        lib.epm_fill_endpoints(
+            gen_seq_bytes, len(gen_seq_bytes),
+            rec["est_bytes"], len(rec["est_bytes"]),
+            rec["est_orig_bytes"], len(rec["est_orig_bytes"]),
+            recsc.ctypes.data, len(keep), ops_c.ctypes.data,
+            n_c.ctypes.data, stride)
+
+
+@_span("pintron_step2_rb_phase")
+def _offload_rb(lib, recs_c, gen_seq_bytes: bytes, config: Config) -> None:
+    """Refine-borders phase of a chunk: collect FILTER 4's gap problems
+    (a cascade replay on the warm K-band memo), evaluate both DP passes'
+    row tables in one device batch, and pre-fill the tag-10 memo for
+    the records whose two passes were both evaluated (the native cut
+    selection runs in ``epm_fill_rb``)."""
+    per_rec = []
+    problems = []
+    for rec in recs_c:
+        if rec["cands"] is None or rec["meg_arrays"] is None:
+            continue
+        recs = _collect_gaps(lib, rec["meg_arrays"], rec["cands"],
+                             gen_seq_bytes, rec["est_bytes"],
+                             rec["est_orig_bytes"], config)
+        if recs is None or not len(recs):
+            continue
+        base = len(problems)
+        eb = rec["est_bytes"]
+        for r in recs:
+            pp = eb[int(r[4]):int(r[4]) + int(r[5])]
+            tt = gen_seq_bytes[int(r[6]):int(r[6]) + int(r[7])]
+            tw = min(int(r[5]) + int(r[8]), int(r[7]))
+            problems.append((tt[:tw], pp))                # forward pass
+            problems.append((tt[::-1][:tw], pp[::-1]))    # reversed pass
+        per_rec.append((rec, recs, base))
+    if not problems:
+        return
+    res = offload.eval_rb(problems)
+    if res is None:
+        return
+    vals, pos, evaluated = res
+    stride = vals.shape[1]
+    for rec, recs, base in per_rec:
+        fwd = base + 2 * np.arange(len(recs))
+        keep = np.flatnonzero(evaluated[fwd] & evaluated[fwd + 1])
+        if not len(keep):
+            continue
+        fwd, bwd = fwd[keep], fwd[keep] + 1
+        tables = [np.ascontiguousarray(a[ix])
+                  for ix in (fwd, bwd) for a in (vals, pos)]
+        recsc = np.ascontiguousarray(recs[keep])
+        lib.epm_fill_rb(
+            gen_seq_bytes, len(gen_seq_bytes),
+            rec["est_bytes"], len(rec["est_bytes"]),
+            rec["est_orig_bytes"], len(rec["est_orig_bytes"]),
+            recsc.ctypes.data, len(keep),
+            *(t.ctypes.data for t in tables), stride)
+
+
+@_span("pintron_step2_gap_collect")
+def _prep_introns(lib, recs_c, gen_seq_bytes: bytes, config: Config,
+                  pool):
+    """Gap-alignment phase of a chunk, part 1: collect every speculative
+    gap problem of the chunk's refine-intron chains
+    (``est_collect_introns``) and submit one device batch, on the
+    executor when there is one.  Returns (per_rec, pending batch), or
+    None when the chunk has no gap problem."""
+    per_rec = []
+    problems = []
+    for rec in recs_c:
+        if rec["cands"] is None or rec["meg_arrays"] is None:
+            continue
+        col = _collect_introns(lib, rec["meg_arrays"], rec["cands"],
+                               gen_seq_bytes, rec["est_bytes"],
+                               rec["est_orig_bytes"], config)
+        if col is None or not len(col[0]):
+            continue
+        recs, arena = col
+        base = len(problems)
+        for r in recs:
+            eo, nn, go, mm = (int(x) for x in r[9:13])
+            problems.append((arena[eo:eo + nn], arena[go:go + mm]))
+        per_rec.append((rec, recs, arena, base))
+    if not problems:
+        return None
+    if pool is None:
+        return per_rec, ("done", offload.eval_gap(problems))
+    return per_rec, ("fut", pool.submit(offload.eval_gap, problems))
+
+
+@_span("pintron_step2_gap_wait")
+def _resolve_introns(prep) -> None:
+    """Part 2: wait for the chunk's gap batch and attach to each record
+    its evaluated windows' results, which ``run_cascade`` installs in
+    the lookaside around the record's cascade.  A window left out
+    misses the lookaside and the cascade computes it on the host."""
+    if prep is None:
+        return
+    per_rec, (kind, val) = prep
+    res = val if kind == "done" else val.result()
+    if res is None:
+        return
+    sm, ops, nsteps, evaluated = res
+    stride = ops.shape[1]
+    for rec, recs, arena, base in per_rec:
+        keep = np.flatnonzero(evaluated[base:base + len(recs)])
+        if not len(keep):
+            continue
+        rec["ri_look"] = (
+            np.ascontiguousarray(recs[keep]),
+            np.frombuffer(arena, dtype=np.uint8),
+            np.ascontiguousarray(sm[base + keep], dtype=np.int64),
+            np.ascontiguousarray(ops[base + keep]),
+            np.ascontiguousarray(nsteps[base + keep], dtype=np.int64),
+            stride)
 
 
 def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
@@ -312,8 +519,9 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
     """The est-fact stage entry point (main-est-fact.c:90-339).
 
     ``device=None`` runs pintron_tpu's host path (the fork pool).  With
-    a device (``"cuda"``, ``"cuda:N"`` or ``"cpu"``) the K-band checks
-    run there; ``"cuda"`` raises when no CUDA device is available."""
+    a device (``"cuda"``, ``"cuda:N"`` or ``"cpu"``) every DP family's
+    batches run there; ``"cuda"`` raises when no CUDA device is
+    available."""
     if os.environ.get("PINTRON_DEVICE"):
         raise RuntimeError(
             "PINTRON_DEVICE is set: pintron_tpu would run its JAX device "
@@ -370,6 +578,8 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
     gen_seq_bytes = gen.seq.encode("latin1")
 
     checkpoint("alignment-begin")
+    dp_census_reset()
+    cells0 = offload.STATS["device_cells"]
     timers["algorithm"].start()
     # fresh-locus benchmark mode: wipe the persistent result memo
     fresh = bool(os.environ.get("PINTRON_FRESH_MEMO"))
@@ -378,10 +588,15 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
                                 fresh=fresh)
     timers["algorithm"].stop()
     checkpoint("alignment-end")
+    host_cells = dp_census() or {}
+    dev_cells = offload.STATS["device_cells"] - cells0
+    total = dev_cells + sum(host_cells.values())
     logging.getLogger("pintron").info(
         "est-fact device flow: %s", json.dumps(
             {"device": str(device), "stats": offload.STATS,
-             "launches": kband.LAUNCHES}, sort_keys=True))
+             "launches": kband.LAUNCHES, "host_dp_cells": host_cells,
+             "device_cell_share": dev_cells / total if total else 0.0},
+            sort_keys=True))
 
     timers["io"].start()
     for k, name in enumerate(OUTPUT_NAMES):

@@ -1,7 +1,8 @@
 """The port's STEP 2 (``pintron_tpu_torch.stages.est_fact``) on the CPU:
-the K-band device flow with the plain PyTorch ops must reproduce the
-golden stage-2 artifacts byte for byte, with the K-band verdicts really
-coming from the device batches."""
+the device flow with the plain PyTorch ops must reproduce the golden
+stage-2 artifacts byte for byte, with every DP family's results really
+coming from the device batches, as many of them as the JAX package's
+device flow sends to its device."""
 
 import shutil
 import threading
@@ -44,16 +45,44 @@ def device_flow(monkeypatch):
     return offload
 
 
+FAMILY_COUNTS = ("nw_problems", "gap_problems", "rb_problems",
+                 "device_problems", "device_cells")
+
+
+def _jax_forced_counts(gold, tmp_path, monkeypatch):
+    """Run pintron_tpu's device flow (JAX on the CPU) with every family
+    forced on, and return its offload counters."""
+    pytest.importorskip("jax")
+    import pintron_tpu.ops.offload as jax_off
+    import pintron_tpu.stages.est_fact as jax_est_fact
+    work = tmp_path / "jax"
+    work.mkdir()
+    for name in ("genomic.txt", "ests.txt"):
+        shutil.copy(gold / name, work / name)
+    for flag in ("", "_NW", "_GAP", "_RB", "_KBAND"):
+        monkeypatch.setenv(f"PINTRON_DEVICE{flag}", "1")
+    monkeypatch.setattr(jax_off, "STATS", dict.fromkeys(jax_off.STATS, 0))
+    try:
+        jax_est_fact.run_est_fact(str(work))
+    finally:
+        for flag in ("", "_NW", "_GAP", "_RB", "_KBAND"):
+            monkeypatch.delenv(f"PINTRON_DEVICE{flag}")
+    _assert_stage2_equal(gold, work)
+    return {k: jax_off.STATS.get(k, 0) for k in FAMILY_COUNTS}
+
+
 @pytest.mark.parametrize("case", ["test-AMBN", "test-TP53"])
 def test_stage2_cpu_device_byte_identical(case, golden, tmp_path,
-                                          device_flow):
+                                          device_flow, monkeypatch):
     gold, work = _workdir(golden, case, tmp_path)
     est_fact.run_est_fact(str(work), device="cpu")
-    assert device_flow.STATS["device_problems"] > 0, \
-        "no K-band problem reached the device batches"
-    assert device_flow.STATS["device_runs"] == 1
+    stats = dict(device_flow.STATS)
+    assert min(stats[k] for k in FAMILY_COUNTS) > 0, stats
+    assert stats["device_runs"] == 1
     assert not device_flow.device_wedged()
     _assert_stage2_equal(gold, work)
+    assert {k: stats[k] for k in FAMILY_COUNTS} == \
+        _jax_forced_counts(gold, tmp_path, monkeypatch)
 
 
 def test_wedged_device_degrades_byte_identical(golden, tmp_path,
@@ -90,6 +119,54 @@ def test_failing_batch_raises_out_of_the_stage(case, golden, tmp_path,
         est_fact.run_est_fact(str(work), device="cpu")
     assert not device_flow.device_wedged()
     assert not (work / "raw-multifasta-out.txt").exists()
+
+
+FAMILIES = ["_eval_nw_device", "_eval_gap_device", "_eval_rb_device"]
+
+
+@pytest.mark.parametrize("entry", FAMILIES)
+def test_failing_family_batch_raises_out_of_the_stage(entry, golden,
+                                                      tmp_path, device_flow,
+                                                      monkeypatch):
+    """A failing NW, gap or refine-borders batch stops STEP 2."""
+    _gold, work = _workdir(golden, "test-788", tmp_path)
+
+    def boom(*_a):
+        raise RuntimeError("kernel fault")
+
+    monkeypatch.setattr(device_flow, entry, boom)
+    with pytest.raises(RuntimeError, match="kernel fault"):
+        est_fact.run_est_fact(str(work), device="cpu")
+    assert not device_flow.device_wedged()
+    assert not (work / "raw-multifasta-out.txt").exists()
+
+
+@pytest.mark.parametrize("entry", FAMILIES)
+def test_hung_family_batch_degrades_byte_identical(entry, golden, tmp_path,
+                                                   device_flow, monkeypatch):
+    """A hung NW, gap or refine-borders batch trips the watchdog; its
+    fill is skipped, later batches short-circuit, and the native cascade
+    computes the rest on the host, byte-identically."""
+    gold, work = _workdir(golden, "test-788", tmp_path)
+    release = threading.Event()
+    monkeypatch.setattr(device_flow, entry, lambda *_a: release.wait(30))
+    monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "1")
+    try:
+        est_fact.run_est_fact(str(work), device="cpu")
+    finally:
+        release.set()
+    assert device_flow.STATS["device_timeouts"] == 1
+    assert device_flow.device_wedged()
+    _assert_stage2_equal(gold, work)
+
+
+def test_missing_native_entry_raises(monkeypatch):
+    class Partial:
+        est_collect_noisy = epm_fill_noisy = None
+
+    monkeypatch.setattr(est_fact, "get_lib", lambda: Partial())
+    with pytest.raises(RuntimeError, match="epm_fill_rb"):
+        est_fact._native_lib()
 
 
 def test_host_path_when_no_device(golden, tmp_path, monkeypatch):

@@ -58,7 +58,7 @@ def test_cpu_tensors_run_the_plain_versions():
     got = kband.batch_edit_distance_score_cuda(s1, l1, s2, l2, max_rows=48)
     want = align.batch_edit_distance_score(s1, l1, s2, l2, max_rows=48)
     assert torch.equal(got, want)
-    assert kband.LAUNCHES == {"kband": 0, "edit_score": 0}
+    assert not any(kband.LAUNCHES.values())
 
 
 def test_non_cpu_tensors_never_run_the_plain_versions(monkeypatch):

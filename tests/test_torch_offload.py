@@ -1,7 +1,9 @@
-"""The port's K-band offload (``pintron_tpu_torch.ops.offload``) on the
-CPU against the JAX package's ``eval_kband`` and the native ep_kband
-verdicts, plus its dispatch watchdog."""
+"""The port's offload (``pintron_tpu_torch.ops.offload``) on the CPU
+against the JAX package's entries (``eval_kband``, ``eval_nw``,
+``eval_gap``, ``eval_rb``) and the native ep_kband verdicts, plus its
+dispatch watchdog, its per-problem size filter and its counters."""
 
+import sys
 import threading
 
 import numpy as np
@@ -135,3 +137,129 @@ def test_encode_matches_reference():
         np.testing.assert_array_equal(got, want)
     assert [offload._p2(x) for x in (1, 17, 64)] == [16, 32, 64]
     assert [offload._p4(x) for x in (1, 17, 1025)] == [16, 64, 4096]
+
+
+# ---- the NW, gap and refine-borders entries --------------------------------
+
+def pair_problems(seed, count=90):
+    """(est_window, gen_window) pairs: e == g, gen with an intron
+    inserted, unrelated pairs, N/n wildcards, several (N, M) buckets."""
+    rng = np.random.default_rng(seed)
+    wild = np.array(list("ACGTNn"))
+    probs = [(b"A", b"A"), (b"ACGT", b"T"), (b"N", b"ACGTTA")]
+    for i in range(count):
+        e = "".join(rng.choice(wild, int(rng.integers(1, 90)))).encode()
+        if i % 3 == 0:
+            g = e
+        elif i % 3 == 1:
+            cut = int(rng.integers(0, len(e) + 1))
+            intron = "".join(rng.choice(ALPHA, int(rng.integers(0, 300))))
+            g = e[:cut] + intron.encode() + e[cut:]
+        else:
+            g = "".join(rng.choice(wild, int(rng.integers(1, 300)))).encode()
+        probs.append((e, g))
+    probs.append(("".join(rng.choice(ALPHA, 300)).encode(),
+                  "".join(rng.choice(ALPHA, 1500)).encode()))
+    return probs
+
+
+def _assert_prefixes_equal(a, b, lens):
+    for i, n in enumerate(lens):
+        np.testing.assert_array_equal(a[i, :n], b[i, :n])
+
+
+def _jax_counts():
+    return {k: jax_off.STATS.get(k, 0) for k in
+            ("problems", "device_problems", "device_cells", "nw_problems",
+             "gap_problems", "rb_problems", "batches")}
+
+
+def _port_counts(off):
+    return {k: off.STATS[k] for k in _jax_counts()}
+
+
+@pytest.fixture
+def fresh_jax_stats(monkeypatch):
+    monkeypatch.setattr(jax_off, "STATS", dict.fromkeys(jax_off.STATS, 0))
+
+
+def test_eval_nw_matches_jax(cpu_offload, fresh_jax_stats):
+    problems = pair_problems(5)
+    ops_j, n_j = jax_off.eval_nw(problems)
+    ops, nsteps, evaluated = cpu_offload.eval_nw(problems)
+    assert evaluated.all() and nsteps.dtype == np.int64
+    np.testing.assert_array_equal(nsteps, n_j)
+    _assert_prefixes_equal(ops, ops_j, nsteps)
+    assert _port_counts(cpu_offload) == _jax_counts()
+    assert 0 < cpu_offload.STATS["nw_problems"] < len(problems)  # e == g
+
+
+def test_eval_gap_matches_jax(cpu_offload, fresh_jax_stats):
+    problems = pair_problems(6)
+    sm_j, ops_j, n_j = jax_off.eval_gap(problems)
+    sm, ops, nsteps, evaluated = cpu_offload.eval_gap(problems)
+    assert evaluated.all()
+    np.testing.assert_array_equal(sm, sm_j)
+    np.testing.assert_array_equal(nsteps, n_j)
+    _assert_prefixes_equal(ops, ops_j, nsteps)
+    assert _port_counts(cpu_offload) == _jax_counts()
+
+
+def test_eval_rb_matches_jax(cpu_offload, fresh_jax_stats):
+    problems = [(g, e) for e, g in pair_problems(7)]
+    v_j, p_j = jax_off.eval_rb(problems)
+    vals, pos, evaluated = cpu_offload.eval_rb(problems)
+    assert evaluated.all() and vals.shape == v_j.shape
+    rows = [len(p) + 1 for _t, p in problems]
+    _assert_prefixes_equal(vals, v_j, rows)
+    _assert_prefixes_equal(pos, p_j, rows)
+    assert _port_counts(cpu_offload) == _jax_counts()
+
+
+@pytest.mark.parametrize("family", ["nw", "gap", "rb"])
+def test_oversized_problem_is_left_to_the_host(cpu_offload, family):
+    """One oversized problem among small ones: the JAX package's entry
+    declines the whole batch (returns None); the port answers the small
+    ones and marks the big one unevaluated."""
+    small = pair_problems(8, count=12)
+    rng = np.random.default_rng(9)
+    if family == "rb":
+        small = [(g, e) for e, g in small]
+        big = ("".join(rng.choice(ALPHA, 17000)).encode(), b"ACGT")
+    else:
+        big = tuple("".join(rng.choice(ALPHA, 2000)).encode()
+                    for _ in range(2))
+    problems = small[:5] + [big] + small[5:]
+    assert getattr(jax_off, f"eval_{family}")(problems) is None
+    res = getattr(cpu_offload, f"eval_{family}")(problems)
+    evaluated = res[-1]
+    assert evaluated.tolist() == [i != 5 for i in range(len(problems))]
+    want = getattr(cpu_offload, f"eval_{family}")(small)
+    keep = [i for i in range(len(problems)) if i != 5]
+    for got, exp in zip(res[:-1], want[:-1]):
+        if got.ndim == 1:
+            np.testing.assert_array_equal(got[keep], exp)
+        else:
+            w = min(got.shape[1], exp.shape[1])
+            np.testing.assert_array_equal(got[keep, :w], exp[:, :w])
+
+
+def test_stats_tally_loses_no_update(cpu_offload):
+    """Batches of two families count from two threads at once (the
+    executor's K-band and gap batches, this thread's NW and rb ones)."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [cpu_offload.tally(device_problems=1,
+                                              device_cells=3)
+                            for _ in range(2000)]) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert cpu_offload.STATS["device_problems"] == 16 * 2000
+    assert cpu_offload.STATS["device_cells"] == 3 * 16 * 2000

@@ -1,0 +1,316 @@
+"""The NW, gap and refine-borders ops of the port: the plain PyTorch
+versions against the JAX package's XLA ops and the host C DPs
+(``nw_align_run``, ``gap_align_run``, ``edit_matrix``), the kernel
+wrappers' dispatch and input checks, and (on a CUDA card, tests marked
+``cuda``) the hand-written kernels against their plain versions.  Every
+comparison is exact.
+
+The JAX comparisons import JAX inside the test, so this file's ``cuda``
+tests run on a GPU machine that has none:
+    python -m pytest tests/test_torch_traceback.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pintron_tpu.factorize.alignments import (_compute_alignment_uncached,
+                                              edit_distance_full)
+from pintron_tpu.factorize.gap_align import _compute_gap_alignment_uncached
+from pintron_tpu.native import get_lib
+from pintron_tpu_torch.ops import align, kband, traceback
+
+ACGT = np.array(list("ACGT"))
+WILD = np.array(list("ACGTNn"))
+
+
+def _mutate(rng, s, k):
+    s = list(s)
+    for _ in range(k):
+        if s:
+            s[int(rng.integers(0, len(s)))] = str(rng.choice(ACGT))
+    return "".join(s)
+
+
+def nw_cases(seed, count=60):
+    """(est, gen) pairs: mutated and truncated copies, unrelated pairs,
+    N/n wildcards on either side, e == g, single characters and empty
+    windows."""
+    rng = np.random.default_rng(seed)
+    cases = [("ACGT", "ACGT"), ("A", "TTTT"), ("A", "A"), ("T", "G"),
+             ("NNNN", "ACGT"), ("", "ACG"), ("ACG", ""), ("", "")]
+    for _ in range(count):
+        src = WILD if rng.integers(0, 3) == 0 else ACGT
+        e = "".join(rng.choice(src, int(rng.integers(1, 90))))
+        if rng.integers(0, 2):
+            g = _mutate(rng, e, int(rng.integers(0, 8)))
+            g = g[: max(1, len(e) - int(rng.integers(0, 5)))]
+        else:
+            g = "".join(rng.choice(src, int(rng.integers(1, 90))))
+        cases.append((e, g))
+    return cases
+
+
+def gap_cases(seed, count=60):
+    """(est, gen) pairs, half of them realistic: gen is est with an
+    intron inserted, then mutated."""
+    rng = np.random.default_rng(seed)
+    cases = [("A", "A"), ("ACGT", "A"), ("A", "TTTTTTTT"), ("N", "ACGTA"),
+             ("", "ACG"), ("ACG", "")]
+    for _ in range(count):
+        src = WILD if rng.integers(0, 4) == 0 else ACGT
+        e = "".join(rng.choice(src, int(rng.integers(1, 100))))
+        if rng.integers(0, 2):
+            cut = int(rng.integers(0, len(e) + 1))
+            intron = "".join(rng.choice(ACGT, int(rng.integers(0, 140))))
+            g = _mutate(rng, e[:cut] + intron + e[cut:],
+                        int(rng.integers(0, 6))) or "A"
+        else:
+            g = "".join(rng.choice(src, int(rng.integers(1, 240))))
+        cases.append((e, g))
+    return cases
+
+
+def encode(pairs, pad=0, wrap=False):
+    """Pad (a, b) string pairs into int8 batches, ``pad`` extra columns
+    on each side; with ``wrap``, padding bytes are 'N' (never read)."""
+    N = max(max(len(a) for a, _ in pairs), 1) + pad
+    M = max(max(len(b) for _, b in pairs), 1) + pad
+    fill = ord("N") if wrap else 0
+    s1 = np.full((len(pairs), N), fill, dtype=np.int8)
+    s2 = np.full((len(pairs), M), fill, dtype=np.int8)
+    l1 = np.zeros(len(pairs), dtype=np.int32)
+    l2 = np.zeros(len(pairs), dtype=np.int32)
+    for i, (a, b) in enumerate(pairs):
+        s1[i, :len(a)] = np.frombuffer(a.encode(), dtype=np.uint8)
+        s2[i, :len(b)] = np.frombuffer(b.encode(), dtype=np.uint8)
+        l1[i], l2[i] = len(a), len(b)
+    return s1, l1, s2, l2
+
+
+def _torch(*arrays, device="cpu"):
+    return align.from_numpy_batch(*arrays, device=torch.device(device))
+
+
+def _need_native():
+    if get_lib() is None:
+        pytest.skip("native library unavailable")
+
+
+# ---- plain versions against the JAX ops -----------------------------------
+
+@pytest.mark.parametrize("seed,pad", [(23, 0), (24, 7)])
+def test_nw_plain_matches_jax(seed, pad):
+    jalign = pytest.importorskip("pintron_tpu.ops.align")
+    s1, l1, s2, l2 = encode(nw_cases(seed), pad=pad)
+    N, M = s1.shape[1], s2.shape[1]
+    score_j, fused = jalign.batch_nw_traceback(s1, l1, s2, l2, max_n=N,
+                                               max_m=M)
+    ops_j, n_j = jalign.decode_nw_fused(fused, N + M)
+    score, ops, nsteps = align.batch_nw_traceback(
+        *_torch(s1, l1, s2, l2), max_n=N, max_m=M)
+    assert score.dtype == nsteps.dtype == torch.int32
+    assert ops.dtype == torch.int8 and ops.shape == (len(l1), N + M)
+    np.testing.assert_array_equal(score.numpy(), np.asarray(score_j))
+    np.testing.assert_array_equal(nsteps.numpy(), n_j)
+    for b in range(len(l1)):
+        np.testing.assert_array_equal(ops.numpy()[b, :n_j[b]],
+                                      ops_j[b, :n_j[b]])
+
+
+@pytest.mark.parametrize("seed,pad", [(31, 0), (32, 5)])
+def test_gap_plain_matches_jax(seed, pad):
+    jalign = pytest.importorskip("pintron_tpu.ops.align")
+    s1, l1, s2, l2 = encode(gap_cases(seed), pad=pad)
+    N, M = s1.shape[1], s2.shape[1]
+    sm_j, ops_j, n_j = jalign.decode_gap_fused(
+        jalign.batch_gap_traceback(s1, l1, s2, l2, max_n=N, max_m=M), N + M)
+    sm, ops, nsteps = align.batch_gap_traceback(
+        *_torch(s1, l1, s2, l2), max_n=N, max_m=M)
+    np.testing.assert_array_equal(sm.numpy(), sm_j)
+    np.testing.assert_array_equal(nsteps.numpy(), n_j)
+    for b in range(len(l1)):
+        np.testing.assert_array_equal(ops.numpy()[b, :n_j[b]],
+                                      ops_j[b, :n_j[b]])
+
+
+@pytest.mark.parametrize("seed,pad", [(41, 0), (42, 9)])
+def test_rowmin_plain_matches_jax(seed, pad):
+    jalign = pytest.importorskip("pintron_tpu.ops.align")
+    # (text, pattern): refine-borders windows and their patterns
+    pairs = [(g, e) for e, g in gap_cases(seed)]
+    s1, l1, s2, l2 = encode(pairs, pad=pad)
+    R = s2.shape[1]
+    fused = np.asarray(jalign.batch_edit_rowmin(s1, l1, s2, l2,
+                                                max_rows=R)).astype(np.int64)
+    vals, pos = align.batch_edit_rowmin(*_torch(s1, l1, s2, l2),
+                                        max_rows=R)
+    assert vals.shape == pos.shape == (len(l1), R + 1)
+    for b in range(len(l1)):
+        rows = int(l2[b]) + 1
+        np.testing.assert_array_equal(vals.numpy()[b, :rows],
+                                      fused[b, :rows])
+        np.testing.assert_array_equal(pos.numpy()[b, :rows],
+                                      fused[b, R + 1:R + 1 + rows])
+
+
+# ---- plain versions against the host C DPs ---------------------------------
+
+@pytest.mark.parametrize("seed", [23, 25])
+def test_nw_plain_matches_host(seed):
+    _need_native()
+    cases = [c for c in nw_cases(seed) if c[0] and c[1]]
+    s1, l1, s2, l2 = encode(cases, wrap=True)
+    score, ops, nsteps = align.batch_nw_traceback(
+        *_torch(s1, l1, s2, l2), max_n=s1.shape[1], max_m=s2.shape[1])
+    for b, (e, g) in enumerate(cases):
+        ref = _compute_alignment_uncached(e, g)
+        assert int(score[b]) == ref.score, (b, e, g)
+        assert align.nw_traceback_decode(e, g, ops[b], nsteps[b]) == \
+            (ref.est, ref.gen), (b, e, g)
+
+
+@pytest.mark.parametrize("seed", [31, 33])
+def test_gap_plain_matches_host(seed):
+    _need_native()
+    cases = [c for c in gap_cases(seed) if c[0] and c[1]]
+    s1, l1, s2, l2 = encode(cases, wrap=True)
+    sm, ops, nsteps = align.batch_gap_traceback(
+        *_torch(s1, l1, s2, l2), max_n=s1.shape[1], max_m=s2.shape[1])
+    for b, (e, g) in enumerate(cases):
+        ref = _compute_gap_alignment_uncached(e, g)
+        assert align.gap_traceback_decode(e, g, sm[b], ops[b],
+                                          nsteps[b]) == (
+            ref.est, ref.gen, ref.factor_cut, ref.intron_start,
+            ref.intron_end, ref.intron_start_on_align,
+            ref.intron_end_on_align), (b, e, g)
+
+
+def test_rowmin_plain_matches_host():
+    _need_native()
+    pairs = [(g, e) for e, g in gap_cases(43)]
+    s1, l1, s2, l2 = encode(pairs, wrap=True)
+    vals, pos = align.batch_edit_rowmin(*_torch(s1, l1, s2, l2),
+                                        max_rows=s2.shape[1])
+    for b, (t, p) in enumerate(pairs):
+        M = edit_distance_full(t, p)           # (len(p)+1, len(t)+1)
+        np.testing.assert_array_equal(vals.numpy()[b, :len(p) + 1],
+                                      M.min(axis=1))
+        np.testing.assert_array_equal(pos.numpy()[b, :len(p) + 1],
+                                      M.argmin(axis=1))
+
+
+# ---- wrappers ---------------------------------------------------------------
+
+WRAPPERS = [
+    ("nw", traceback.batch_nw_traceback_cuda, align.batch_nw_traceback),
+    ("gap", traceback.batch_gap_traceback_cuda, align.batch_gap_traceback),
+]
+
+
+@pytest.mark.parametrize("name,wrapper,plain", WRAPPERS)
+def test_cpu_tensors_run_the_plain_traceback(name, wrapper, plain):
+    s1, l1, s2, l2 = encode(gap_cases(50, count=20))
+    args = _torch(s1, l1, s2, l2)
+    kw = dict(max_n=s1.shape[1], max_m=s2.shape[1])
+    kband.reset_launches()
+    for got, want in zip(wrapper(*args, **kw), plain(*args, **kw)):
+        assert torch.equal(got, want), name
+    assert not any(kband.LAUNCHES.values())
+
+
+def test_cpu_tensors_run_the_plain_rowmin():
+    s1, l1, s2, l2 = encode([(g, e) for e, g in gap_cases(51, count=20)])
+    args = _torch(s1, l1, s2, l2)
+    kband.reset_launches()
+    for got, want in zip(
+            traceback.batch_edit_rowmin_cuda(*args, max_rows=s2.shape[1]),
+            align.batch_edit_rowmin(*args, max_rows=s2.shape[1])):
+        assert torch.equal(got, want)
+    assert not any(kband.LAUNCHES.values())
+
+
+def test_non_cpu_tensors_never_run_the_plain_versions(monkeypatch):
+    """A tensor off the CPU goes to a kernel or the call raises."""
+    def plain(*a, **k):
+        raise AssertionError("plain version called for a device tensor")
+
+    for name in ("batch_nw_traceback", "batch_gap_traceback",
+                 "batch_edit_rowmin"):
+        monkeypatch.setattr(align, name, plain)
+    s1, l1, s2, l2 = (t.to("meta")
+                      for t in _torch(*encode([("ACGT", "ACG")])))
+    with pytest.raises(ValueError, match="no nw kernel"):
+        traceback.batch_nw_traceback_cuda(s1, l1, s2, l2, max_n=4, max_m=3)
+    with pytest.raises(ValueError, match="no gap kernel"):
+        traceback.batch_gap_traceback_cuda(s1, l1, s2, l2, max_n=4, max_m=3)
+    with pytest.raises(ValueError, match="no rowmin kernel"):
+        traceback.batch_edit_rowmin_cuda(s1, l1, s2, l2, max_rows=3)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "batch",
+                                 "width", "too_wide"])
+def test_wrapper_rejects_malformed_batches(bad):
+    s1, l1, s2, l2 = _torch(*encode(gap_cases(52, count=8)))
+    N, M = s1.shape[1], s2.shape[1]
+    if bad == "dtype":
+        s1 = s1.to(torch.int32)
+    elif bad == "shape":
+        l1 = l1[:, None]
+    elif bad == "contiguous":
+        s2 = torch.cat([s2, s2], dim=1)[:, ::2]
+    elif bad == "batch":
+        l2 = l2[:-1]
+    elif bad == "width":
+        M += 1
+    else:
+        wide = traceback.MAX_WIDTH + 1
+        s2 = torch.zeros((s1.shape[0], wide), dtype=torch.int8,
+                         device="meta")
+        s1, l1, l2 = s1.to("meta"), l1.to("meta"), l2.to("meta")
+        M = wide
+    with pytest.raises(ValueError):
+        traceback.batch_gap_traceback_cuda(s1, l1, s2, l2, max_n=N, max_m=M)
+
+
+# ---- kernels against their plain versions, on the card ----------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,wrapper,plain", WRAPPERS)
+@pytest.mark.parametrize("pad", [0, 1000])
+def test_traceback_kernels_match_plain_on_card(cuda_device, name, wrapper,
+                                               plain, pad):
+    s1, l1, s2, l2 = encode(gap_cases(60) + nw_cases(61), pad=pad)
+    args = _torch(s1, l1, s2, l2, device=cuda_device)
+    kw = dict(max_n=s1.shape[1], max_m=s2.shape[1])
+    before = kband.LAUNCHES[name]
+    got = wrapper(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), name
+    assert kband.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [0, 3000])
+def test_rowmin_kernel_matches_plain_on_card(cuda_device, pad):
+    s1, l1, s2, l2 = encode([(g, e) for e, g in gap_cases(62)], pad=pad)
+    args = _torch(s1, l1, s2, l2, device=cuda_device)
+    R = s2.shape[1]
+    before = kband.LAUNCHES["rowmin"]
+    vals, pos = traceback.batch_edit_rowmin_cuda(*args, max_rows=R)
+    pv, pp = align.batch_edit_rowmin(*args, max_rows=R)
+    torch.cuda.synchronize()
+    live = (torch.arange(R + 1, device=cuda_device)[None, :]
+            <= args[3][:, None].long())
+    assert torch.equal(vals[live], pv[live])
+    assert torch.equal(pos[live], pp[live])
+    assert kband.LAUNCHES["rowmin"] == before + 1
