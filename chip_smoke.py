@@ -11,10 +11,14 @@ failure (so the script exits non-zero and never prints its last line):
   3. each kernel against its plain PyTorch version on the card, exact
      equality on every problem: seeded batches with the edge cases, the
      K-band production shape (B, rows, W) = (32768, 256, 33) and the
-     shapes the loci give the NW, gap and rowmin kernels; times of both
-     (CUDA events) at the shapes the main path gives them;
-  4. the main path: STEP 2 (est-fact) through the port's run_est_fact on
-     the TP53 and issue-13 loci with every DP family on the card,
+     shapes the loci give the NW, gap and rowmin kernels, and
+     pwm_kernel bit for bit on seeded windows (N bases, codes outside
+     0..3, B = 1 and B not a multiple of 32, the issue-13 sweep's shape
+     (8425, 12)); times of both (CUDA events) at the shapes the main
+     path gives them, edit_score_kernel's at the STEP 4 shape
+     (256, 16, 16);
+  4. the main path, STEP 2 (est-fact): the port's run_est_fact on the
+     TP53 and issue-13 loci with every DP family on the card,
      byte-compared with tests/golden/; the kernel launch counters are
      reset just before these two runs and read just after them.  Then,
      with the counters reset again, the offload entries on problem
@@ -22,15 +26,27 @@ failure (so the script exits non-zero and never prints its last line):
      ep_kband verdicts (it reaches the full-matrix route, which no real
      locus reaches), eval_nw against nw_align_run, eval_gap against
      gap_align_run and eval_rb against the rows of edit_matrix;
-  5. the full pipeline, python -m pintron_tpu_torch.pipeline --device
-     cuda, on AMBN, classified against golden like tools/check_e2e.py.
+  5. the main path, STEP 4 (intron agreement): the port's
+     run_intron_agreement on TP53 and issue-13 from the goldens' STEP 3
+     outputs, its two artifacts byte-compared with tests/golden/, with
+     the counters reset just before and read just after;
+  6. the full pipeline, python -m pintron_tpu_torch.pipeline --device
+     cuda, on AMBN, classified against golden like tools/check_e2e.py,
+     with both device-flow log lines' launches;
+  7. the device service: python -m pintron_tpu_torch.devservice --device
+     cuda, TP53's STEP 2 sharded over 8 fork workers in a client process
+     that must never initialise CUDA, byte-compared with golden; then
+     python -m pintron_tpu_torch.batch --device cuda on AMBN and TP53
+     (AMBN against golden as in phase 6; TP53, whose final outputs
+     differ from golden by the reference's stage-5 hash order, against
+     pintron_tpu's host batch on the same input, byte for byte).
 
 Before the last line it prints the card line and one JSON object:
-under "kernels" every kernel the main path launched, with its launches
-there, its launches on the problem mix, its largest difference from
-the plain version, and both times; under "not_reached_by_main_path"
-the same for a built and checked kernel that the main path did not
-launch.  The last line is {"ok": true, "device": {...}}.
+under "kernels" every kernel, with its launches on the main path
+(STEPs 2 and 4; each path's count apart under "launches_by_path"), its
+launches on the problem mix, its largest difference from the plain
+version, and both times.  Every kernel must have been launched by the
+main path.  The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -51,9 +67,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 STAGE2_FILES = ("raw-multifasta-out.txt", "processed-ests.txt", "megs.txt",
                 "processed-megs.txt", "meg-edges.txt")
+STAGE4_INPUTS = ("genomic.txt", "processed-ests.txt", "out-agree.txt")
+STAGE4_FILES = ("out-after-intron-agree.txt", "predicted-introns.txt")
 # the kernels every locus's STEP 2 launches (edit_score_kernel serves
-# the full-matrix K-band route, which no golden locus reaches)
-MAIN_PATH_KERNELS = ("kband", "nw", "gap", "rowmin")
+# the full-matrix K-band route there, which no golden locus reaches),
+# and those its STEP 4 launches
+STEP2_KERNELS = ("kband", "nw", "gap", "rowmin")
+STEP4_KERNELS = ("pwm", "edit_score")
 KERNELS = {
     "kband": ("pintron_tpu_torch/csrc/kband.cu",
               "pintron_tpu/ops/pallas_align.py:160"),
@@ -63,6 +83,7 @@ KERNELS = {
     "gap": ("pintron_tpu_torch/csrc/gap.cu", "pintron_tpu/ops/align.py:353"),
     "rowmin": ("pintron_tpu_torch/csrc/rowmin.cu",
                "pintron_tpu/ops/align.py:176"),
+    "pwm": ("pintron_tpu_torch/csrc/pwm.cu", "pintron_tpu/ops/pwm.py:48"),
 }
 
 
@@ -310,6 +331,61 @@ def phase_kernels(dev, gpu):
     return errs, times
 
 
+def random_windows(rng, B):
+    """Seeded BPS windows: codes 0..3 (N is coded 0), runs of one base,
+    and a few codes outside 0..3, which add nothing."""
+    codes = rng.integers(0, 4, (B, 12)).astype(np.int8)
+    codes[::5] = codes[::5, :1]
+    odd = rng.random((B, 12)) < 0.01
+    codes[odd] = rng.choice(np.array([-1, 4, 9, -128], dtype=np.int8),
+                            int(odd.sum()))
+    return codes
+
+
+def phase_stage4_kernels(dev, gpu):
+    """pwm_kernel bit for bit against its plain version, and
+    edit_score_kernel at the shape STEP 4 gives it."""
+    from pintron_tpu_torch.ops import align, kband, pwm
+    rng = np.random.default_rng(20261016)
+    err = 0.0
+    for name in ("BPS_9", "BPS_10"):
+        wpwm, den = pwm.pwm_tables(name)
+        w = torch.from_numpy(wpwm).to(dev)
+        for B in (1, 31, 33, 1000, 8425):
+            c = torch.from_numpy(random_windows(rng, B)).to(dev)
+            got = pwm.pwm_scores_cuda(c, w, den)
+            want = pwm.pwm_scores(c, w, den)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"pwm {name} B={B}: kernel != plain on "
+                                     f"{int((got != want).sum())} windows")
+            err = max(err, float((got - want).abs().max()))
+    print("pwm_kernel == plain, bit for bit, on every window", flush=True)
+    # the issue-13 sweep's batch per matrix: 8425 windows of 12 bases
+    wpwm, den = pwm.pwm_tables("BPS_9")
+    w = torch.from_numpy(wpwm).to(dev)
+    c = torch.from_numpy(random_windows(rng, 8425)).to(dev)
+    ms = cuda_ms(lambda: pwm.pwm_scores_cuda(c, w, den), 50)
+    pms = cuda_ms(lambda: pwm.pwm_scores(c, w, den), 10)
+    print(f"pwm (B, L) = (8425, 12): kernel {ms:.4f} ms, plain {pms:.4f} ms"
+          f"  [{gpu}]", flush=True)
+    times = {"pwm": (ms, pms)}
+    # the edit stats' batch: issue-13's 222 unequal window pairs padded
+    # to 256, both windows at most 15 nt, so one (16, 16) bucket
+    B, N, M = 256, 16, 16
+    batch = random_kband_batch(rng, B, N, M, 4, masked=True)
+    kw = dict(max_rows=M)
+    e, args = compare("edit_score", kband.batch_edit_distance_score_cuda,
+                      align.batch_edit_distance_score, batch[:4], kw, dev)
+    ms = cuda_ms(lambda: kband.batch_edit_distance_score_cuda(*args, **kw),
+                 50)
+    pms = cuda_ms(lambda: align.batch_edit_distance_score(*args, **kw), 10)
+    times["edit_score"] = (ms, pms)
+    print(f"edit_score (B, N, rows) = ({B}, {N}, {M}), the STEP 4 shape: "
+          f"kernel {ms:.4f} ms, plain {pms:.4f} ms  [{gpu}]", flush=True)
+    return {"pwm": err, "edit_score": e}, times
+
+
 def unpack_golden(case, dest):
     with tarfile.open(os.path.join(GOLDEN, f"{case}.tar.gz")) as tf:
         tf.extractall(dest)
@@ -459,7 +535,7 @@ def phase_main_path(dev, gpu):
                                  "was hidden by the host fallback")
         if got_mix is None or [int(v) for v in got_mix] != want_mix:
             raise AssertionError("eval_kband verdicts differ from ep_kband")
-        if min(mix_launches.values()) <= 0:
+        if min(mix_launches[k] for k in STEP2_KERNELS + ("edit_score",)) <= 0:
             raise AssertionError(f"the problem mix left a kernel "
                                  f"unlaunched: {mix_launches}")
         print(f"eval_kband on {len(mix)} mixed problems == native "
@@ -494,7 +570,7 @@ def phase_main_path(dev, gpu):
                   f"problems {stats['nw_problems']}/{stats['gap_problems']}/"
                   f"{stats['rb_problems']}, launches {lc}  [{gpu}]",
                   flush=True)
-        for key in MAIN_PATH_KERNELS:
+        for key in STEP2_KERNELS:
             if launches[key] <= 0:
                 raise AssertionError(f"{key}_kernel never launched on the "
                                      "main path")
@@ -506,7 +582,6 @@ def phase_main_path(dev, gpu):
 
 
 def phase_pipeline(dev, gpu):
-    from pintron_tpu.regression import compare_outputs
     tmp = tempfile.mkdtemp(prefix="chip-smoke-e2e-")
     try:
         gold = os.path.join(tmp, "gold")
@@ -528,25 +603,200 @@ def phase_pipeline(dev, gpu):
         if r.returncode:
             raise RuntimeError(f"pipeline rc={r.returncode}:\n"
                                f"{r.stderr[-3000:]}")
-        flow = None
+        flows = {}
         with open(os.path.join(work, "pintron-log.txt")) as f:
             for ln in f:
-                if "est-fact device flow: " in ln:
-                    flow = json.loads(ln.split("est-fact device flow: ",
-                                               1)[1])
-        if flow is None or min(flow["launches"][k]
-                               for k in MAIN_PATH_KERNELS) <= 0:
-            raise AssertionError(f"pipeline STEP 2 did not run every "
-                                 f"family's kernel: {flow}")
-        res = compare_outputs(work, gold)
-        if res["json_byte"] and res["gtf_byte"]:
-            label = "byte-identical"
-        elif res["json_canonical"] and res["gtf_canonical"]:
-            label = "canonical"
-        else:
-            raise AssertionError(f"AMBN full pipeline differs: {res}")
+                for key in ("est-fact", "intron-agreement"):
+                    tag = f"{key} device flow: "
+                    if tag in ln:
+                        flows[key] = json.loads(ln.split(tag, 1)[1])
+        for key, kernels in (("est-fact", STEP2_KERNELS),
+                             ("intron-agreement", STEP4_KERNELS)):
+            if key not in flows or min(flows[key]["launches"][k]
+                                       for k in kernels) <= 0:
+                raise AssertionError(f"pipeline {key} did not launch "
+                                     f"{kernels}: {flows.get(key)}")
+        label = classify_e2e("AMBN", gold, work)
         print(f"AMBN full pipeline (--device cuda): {label} in {dt:.2f} s; "
-              f"STEP 2 {flow}  [{gpu}]", flush=True)
+              f"STEP 2 {flows['est-fact']}; STEP 4 "
+              f"{flows['intron-agreement']}  [{gpu}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def compare_files(case, gold, work, names, work_names=None):
+    for name, wname in zip(names, work_names or names):
+        with open(os.path.join(gold, name), "rb") as f:
+            g = f.read()
+        with open(os.path.join(work, wname), "rb") as f:
+            w = f.read()
+        if g != w:
+            raise AssertionError(f"{case}: {wname} differs from {name}")
+
+
+def phase_stage4(dev, gpu):
+    """STEP 4 through the port on the card, from the goldens' STEP 3
+    outputs; returns the path's kernel launches."""
+    from pintron_tpu_torch.ops import kband, offload
+    from pintron_tpu_torch.stages.intron_agreement import \
+        run_intron_agreement
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-s4-")
+    try:
+        works = {}
+        for case in ("test-TP53", "test-issue-13"):
+            gold = os.path.join(tmp, "gold-" + case)
+            work = os.path.join(tmp, "work-" + case)
+            os.makedirs(work)
+            unpack_golden(case, gold)
+            for fn in STAGE4_INPUTS:
+                shutil.copy(os.path.join(gold, fn), work)
+            works[case] = (gold, work)
+        kband.reset_launches()      # the STEP 4 path's run starts here
+        per_case = {}
+        for case, (gold, work) in works.items():
+            offload.reset_stats()
+            before = dict(kband.LAUNCHES)
+            t0 = time.perf_counter()
+            run_intron_agreement(work, device=dev)
+            dt = time.perf_counter() - t0
+            per_case[case] = (dt, dict(offload.STATS),
+                              {k: kband.LAUNCHES[k] - before[k]
+                               for k in before})
+        launches = dict(kband.LAUNCHES)     # ... and ends here
+        if offload.device_wedged():
+            raise AssertionError("device wedge latch set in STEP 4")
+        for case, (dt, stats, lc) in per_case.items():
+            gold, work = works[case]
+            compare_files(case, gold, work, STAGE4_FILES)
+            if min(stats["pwm_windows"], stats["edit_problems"],
+                   lc["pwm"], lc["edit_score"]) <= 0:
+                raise AssertionError(f"{case}: STEP 4 left the card idle: "
+                                     f"{stats}, launches {lc}")
+            print(f"{case}: STEP 4 byte-identical to golden in {dt:.4f} s; "
+                  f"pwm_windows {stats['pwm_windows']}, edit_problems "
+                  f"{stats['edit_problems']}, launches {lc}  [{gpu}]",
+                  flush=True)
+        print(f"STEP 4 path launches {launches}", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# a client of the device service: STEP 2 on one locus, sharded over
+# PINTRON_EST_WORKERS fork workers; prints its log line and whether
+# this process ever initialised CUDA
+SERVICE_CLIENT = """
+import json, logging, sys, time
+import torch
+from pintron_tpu_torch.stages.est_fact import run_est_fact
+logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                    format="%(message)s")
+t0 = time.perf_counter()
+run_est_fact(sys.argv[1], device="cuda")
+print(json.dumps({"seconds": time.perf_counter() - t0,
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def classify_e2e(case, gold, work):
+    from pintron_tpu.regression import compare_outputs
+    res = compare_outputs(work, gold)
+    if res["json_byte"] and res["gtf_byte"]:
+        return "byte-identical"
+    if res["json_canonical"] and res["gtf_canonical"]:
+        return "canonical"
+    raise AssertionError(f"{case} full pipeline differs: {res}")
+
+
+def phase_service(dev, gpu):
+    from pintron_tpu_torch.batch import start_service, stop_service
+    from pintron_tpu_torch.ops.offload import SERVICE_ENV
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-svc-")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PINTRON_DEVICE", SERVICE_ENV)}
+    try:
+        golds = {}
+        for case in ("test-TP53", "test-AMBN"):
+            golds[case] = os.path.join(tmp, "gold-" + case)
+            unpack_golden(case, golds[case])
+        work = os.path.join(tmp, "step2-TP53")
+        os.makedirs(work)
+        for fn in ("genomic.txt", "ests.txt"):
+            shutil.copy(os.path.join(golds["test-TP53"], fn), work)
+        t0 = time.perf_counter()
+        proc, sock = start_service(str(dev))
+        print(f"device service up in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        try:
+            r = subprocess.run(
+                [sys.executable, "-c", SERVICE_CLIENT, work], cwd=REPO,
+                env=dict(env, **{SERVICE_ENV: sock,
+                                 "PINTRON_EST_WORKERS": "8",
+                                 "PINTRON_FRESH_MEMO": "1"}),
+                capture_output=True, text=True, timeout=300)
+        finally:
+            report = stop_service(proc, sock)
+        if r.returncode:
+            raise RuntimeError(f"service client rc={r.returncode}:\n"
+                               f"{r.stderr[-3000:]}")
+        lines = r.stdout.strip().splitlines()
+        flow = json.loads(next(ln for ln in lines if ln.startswith(
+            "est-fact device flow: ")).split(": ", 1)[1])
+        client = json.loads(lines[-1])
+        compare_files("test-TP53 (service)", golds["test-TP53"], work,
+                      STAGE2_FILES)
+        if client["cuda_initialized"] or flow["workers"] != 8:
+            raise AssertionError(f"service client: {client}, {flow}")
+        if report is None or min(report["launches"][k]
+                                 for k in STEP2_KERNELS) <= 0:
+            raise AssertionError(f"the service left a STEP 2 kernel "
+                                 f"unlaunched: {report}")
+        print(f"TP53 STEP 2, 8 fork workers through the service: byte-"
+              f"identical in {client['seconds']:.3f} s = "
+              f"{623 / client['seconds']:.2f} ESTs/s; client CUDA "
+              f"initialised: {client['cuda_initialized']}; service "
+              f"{report['stats']}, launches {report['launches']}  [{gpu}]",
+              flush=True)
+
+        # the batch driver: two loci through one service
+        rows, host_rows = [], []
+        for case, gene in (("test-AMBN", "AMBN"), ("test-TP53", "TP53")):
+            g = golds[case]
+            rows.append(f"{tmp}/batch-{case}\t{g}/genomic.txt\t"
+                        f"{g}/ests.txt\t{gene}\thuman")
+            if case == "test-TP53":
+                host_rows.append(f"{tmp}/host-{case}\t{g}/genomic.txt\t"
+                                 f"{g}/ests.txt\t{gene}\thuman")
+        summaries = {}
+        for name, body, extra in (("jobs.tsv", rows, ["--device", str(dev)]),
+                                  ("host.tsv", host_rows, [])):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write("\n".join(body) + "\n")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "pintron_tpu_torch.batch",
+                 "--manifest", os.path.join(tmp, name), "--jobs", "2",
+                 *extra], cwd=REPO, env=env, capture_output=True,
+                text=True, timeout=600)
+            if r.returncode:
+                raise RuntimeError(f"batch {extra} rc={r.returncode}:\n"
+                                   f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+            summaries[name] = json.loads(r.stdout.strip().splitlines()[-1])
+            print(f"batch {' '.join(extra) or '(host)'}: {summaries[name]} "
+                  f"in {time.perf_counter() - t0:.2f} s  [{gpu}]", flush=True)
+        launches = summaries["jobs.tsv"]["service"]["launches"]
+        if min(launches[k] for k in STEP2_KERNELS + STEP4_KERNELS) <= 0:
+            raise AssertionError(f"the batch's service left a kernel "
+                                 f"unlaunched: {launches}")
+        work = f"{tmp}/batch-test-AMBN"
+        os.replace(os.path.join(work, "pintron-full-output.json"),
+                   os.path.join(work, "full.json"))
+        label = classify_e2e("test-AMBN", golds["test-AMBN"], work)
+        compare_files("test-TP53 (batch)", f"{tmp}/host-test-TP53",
+                      f"{tmp}/batch-test-TP53",
+                      ("pintron-full-output.json", "pintron-all-isoforms.gtf"))
+        print(f"batch --device cuda: AMBN {label} against golden; TP53 "
+              f"byte-identical to pintron_tpu's host batch", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -582,28 +832,40 @@ def main() -> int:
     tb_errs, tb_times = phase_traceback_kernels(dev, gpu)
     errs.update(tb_errs)
     times.update(tb_times)
+    s4_errs, s4_times = phase_stage4_kernels(dev, gpu)
+    errs["pwm"] = s4_errs["pwm"]
+    errs["edit_score"] = max(errs["edit_score"], s4_errs["edit_score"])
+    times.update(s4_times)
 
-    phase("4. main path: STEP 2 on TP53 and issue-13")
-    launches, mix_launches = phase_main_path(dev, gpu)
+    phase("4. main path, STEP 2 on TP53 and issue-13")
+    step2, mix_launches = phase_main_path(dev, gpu)
 
-    phase("5. full pipeline on AMBN")
+    phase("5. main path, STEP 4 on TP53 and issue-13")
+    step4 = phase_stage4(dev, gpu)
+
+    phase("6. full pipeline on AMBN")
     phase_pipeline(dev, gpu)
+
+    phase("7. device service: sharded STEP 2 and the batch driver")
+    phase_service(dev, gpu)
 
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
-    kernels, unreached = [], []
+    kernels = []
     for key, (src, replaces) in KERNELS.items():
-        entry = {"name": f"{key}_kernel", "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": launches[key],
-                 "offload_mix_launches": mix_launches[key],
-                 "max_abs_err": errs[key], "ms": times[key][0],
-                 "plain_ms": times[key][1]}
-        # the full-matrix route needs a noisy exon of at most 3 nt, which
-        # the loci do not have: edit_score_kernel is then listed apart
-        (kernels if launches[key] > 0 else unreached).append(entry)
+        launches = step2[key] + step4[key]
+        if launches <= 0:
+            raise AssertionError(f"{key}_kernel never launched on the "
+                                 "main path")
+        kernels.append({
+            "name": f"{key}_kernel", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": {"step2": step2[key], "step4": step4[key]},
+            "offload_mix_launches": mix_launches[key],
+            "max_abs_err": errs[key], "ms": times[key][0],
+            "plain_ms": times[key][1]})
     print(gpu)
-    print(json.dumps({"kernels": kernels,
-                      "not_reached_by_main_path": unreached}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -115,5 +115,7 @@ def load():
             fn.argtypes = [P, I, P, I, P, P, P, P, P, P, I, P]
         lib.pintron_rowmin.restype = I
         lib.pintron_rowmin.argtypes = [P, I, P, I, P, P, P, P, I, I, P]
+        lib.pintron_pwm.restype = I
+        lib.pintron_pwm.argtypes = [P, I, P, ctypes.c_float, P, I, P]
         _LIB = lib
         return lib

@@ -12,9 +12,9 @@ arguments and results as the plain versions in
     version.
 
 ``LAUNCHES`` counts kernel launches per kernel, for these wrappers and
-for those of ``pintron_tpu_torch.ops.traceback``.  Launches come from
-the offload's executor thread and its dispatch threads, so the count is
-taken under a lock.
+for those of ``pintron_tpu_torch.ops.traceback`` and ``.pwm``.
+Launches come from the offload's executor thread and its dispatch
+threads, so the count is taken under a lock.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from pintron_tpu_torch.ops import align
 
 LAUNCHES = {"kband": 0, "edit_score": 0, "nw": 0, "gap": 0,
-            "rowmin": 0}
+            "rowmin": 0, "pwm": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 

@@ -27,8 +27,15 @@ read.  Unlike the JAX package's entries, which decline a whole batch
 when one problem is oversized, they leave each oversized problem to the
 host DP and say which problems they evaluated.
 
-The device is a module setting made by the caller (``set_device``).  On
-a CPU device the wrappers run the plain PyTorch versions.
+Stage 4's two device sites have their entries here too: the PWM window
+scores of the branch-point sweep (``pwm_scores_batched``) and the edit
+distances of the predicted-introns stats (``eval_edit_batch``).
+
+The device is a module setting made by the caller (``use_device``).  On
+a CPU device the wrappers run the plain PyTorch versions.  With
+``PINTRON_TORCH_SERVICE`` set, every entry sends its batch to the
+GPU-owning service (``pintron_tpu_torch.devservice``) instead, and the
+process never creates a CUDA context.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 from pintron_tpu_torch.ops.align import from_numpy_batch
 from pintron_tpu_torch.ops.kband import (banded_edit_distance_cuda,
                                          batch_edit_distance_score_cuda)
+from pintron_tpu_torch.ops.pwm import pwm_scores_cuda
 from pintron_tpu_torch.ops.traceback import (MAX_WIDTH,
                                              batch_edit_rowmin_cuda,
                                              batch_gap_traceback_cuda,
@@ -81,13 +89,16 @@ def _encode(seqs: Sequence[bytes], width: int, rows: int = 0):
 
 
 # running counters for benchmarks/diagnostics: problems seen, problems
-# evaluated on the device (all families, and per family for NW, rb and
-# gap), DP cells computed there; counted as the JAX package counts them.
+# evaluated on the device (all families, and per family for NW, rb, gap
+# and the stage-4 edit stats), PWM windows scored, DP cells computed
+# there; counted as the JAX package counts them, and the same whether a
+# batch runs here or on the service.
 # Batches of two families run at once (the executor thread's K-band and
 # gap batches beside this thread's NW and rb batches), so the counters
 # are added to under a lock.
 STATS = {"problems": 0, "device_problems": 0, "device_cells": 0,
          "nw_problems": 0, "gap_problems": 0, "rb_problems": 0,
+         "edit_problems": 0, "pwm_windows": 0,
          "batches": 0, "device_runs": 0, "device_timeouts": 0}
 _STATS_LOCK = threading.Lock()
 
@@ -109,9 +120,106 @@ _DEVICE = None
 
 
 def set_device(device) -> None:
-    """Select the torch device the K-band batches run on."""
+    """Select the torch device the batches run on."""
     global _DEVICE
     _DEVICE = torch.device(device)
+
+
+def use_device(device) -> torch.device:
+    """Check and select the device of this process's batches
+    (``"cuda"``, ``"cuda:N"`` or ``"cpu"``).  ``cuda`` raises when no
+    CUDA device is available, unless the batches go to the service,
+    which owns the device: this process then never touches CUDA, and
+    the service's device must be of the same type."""
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    served = service_device()
+    if served is not None:
+        _check_served(served, device)
+    elif device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device}: torch.cuda.is_available() is "
+                           "false")
+    set_device(device)
+    return device
+
+
+# ---- the device service client ---------------------------------------------
+# PINTRON_TORCH_SERVICE=<unix socket> sends every batch of this process
+# to the GPU-owning service: the process never creates a CUDA context,
+# so it may fork (STEP 2's sharded flow, the batch driver's workers),
+# and the service merges concurrent clients' batches.  The variable is
+# the port's own, so the JAX package (PINTRON_DEVICE_SERVICE) never
+# reaches a torch service, nor the port a JAX one.  A client checks on
+# connecting that the service runs on its own device type, so a cuda
+# run never lands on a cpu service.  A service error is raised here, as
+# a failed kernel is; a service that hangs trips device_call's timeout
+# like a hung device.
+
+SERVICE_ENV = "PINTRON_TORCH_SERVICE"
+AUTHKEY = b"pintron-torch-devservice"
+_SERVICE = None   # (socket path, Connection, the service's torch.device)
+_SERVICE_LOCK = threading.Lock()   # one request in flight per connection
+
+
+def service_socket():
+    return os.environ.get(SERVICE_ENV) or None
+
+
+def _forget_service() -> None:
+    """In a forked child: drop the parent's connection (and a lock a
+    parent thread may have held) so the child dials its own."""
+    global _SERVICE, _SERVICE_LOCK
+    _SERVICE = None
+    _SERVICE_LOCK = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_service)
+
+
+def _service_conn():
+    """This process's connection to the service, dialled on first use
+    (under _SERVICE_LOCK); returns (Connection, the service's device)."""
+    global _SERVICE
+    addr = service_socket()
+    if _SERVICE is None or _SERVICE[0] != addr:
+        from multiprocessing.connection import Client
+        conn = Client(addr, family="AF_UNIX", authkey=AUTHKEY)
+        conn.send(("hello", None))
+        _status, served = conn.recv()
+        _SERVICE = (addr, conn, torch.device(served))
+    return _SERVICE[1], _SERVICE[2]
+
+
+def service_device():
+    """The device of the service this process's batches go to, or None
+    when no service is set."""
+    if service_socket() is None:
+        return None
+    with _SERVICE_LOCK:
+        return _service_conn()[1]
+
+
+def _check_served(served: torch.device, device: torch.device) -> None:
+    if served.type != device.type:
+        raise RuntimeError(f"device service at {service_socket()} runs on "
+                           f"{served}, not on the {device} asked for")
+
+
+def service_eval(op: str, payload, device: torch.device):
+    """Round-trip one batch through the service.  Returns its result,
+    or None when no service is set; raises the service's error, and
+    raises when the service's device is not of ``device``'s type."""
+    if service_socket() is None:
+        return None
+    with _SERVICE_LOCK:
+        conn, served = _service_conn()
+        _check_served(served, device)
+        conn.send((op, payload))
+        status, res = conn.recv()
+    if status != "ok":
+        raise RuntimeError(f"device service: {res}")
+    return res
 
 
 # ---- bounded dispatch ----------------------------------------------------
@@ -204,6 +312,16 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
     tally(problems=len(problems))
     if not rest:
         return ok
+    tally(device_problems=len(rest),
+          device_cells=sum(len(a) * len(b) if 2 * ub + 1 >= len(a)
+                           else len(b) * (2 * ub + 1)
+                           for _, a, b, ub in rest))
+    r = service_eval("kband", [(a, b, ub) for _, a, b, ub in rest],
+                     device)
+    if r is not None:
+        tally(batches=1)
+        ok[[i for i, _a, _b, _ub in rest]] = r
+        return ok
 
     full_groups = {}
     band_groups = {}
@@ -231,8 +349,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
                 *from_numpy_batch(s1, l1, s2, l2, device=device),
                 max_rows=M)
         pending.append((items, r))
-        tally(device_problems=len(items), batches=1,
-              device_cells=sum(len(a) * len(b) for _, a, b, _ in items))
+        tally(batches=1)
 
     for N, items in sorted(band_groups.items()):
         M = _p4(max(len(b) for _, _, b, _ in items))
@@ -247,9 +364,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
                 *from_numpy_batch(s1, l1, s2, l2, band, device=device),
                 max_rows=M, k_max=K)
         pending.append((items, r))
-        tally(device_problems=len(items), batches=1,
-              device_cells=sum(len(b) * (2 * ub + 1)
-                               for _, _a, b, ub in items))
+        tally(batches=1)
 
     for items, r in pending:
         rn = r.cpu().numpy()
@@ -325,22 +440,27 @@ def _eval_nw_device(problems: List[Tuple[bytes, bytes]],
     L = max((len(e) + len(g) for e, g in problems), default=1)
     all_ops = np.zeros((len(problems), L), dtype=np.int8)
     all_n = np.zeros(len(problems), dtype=np.int64)
-    tally(problems=len(problems))
     on_card = evaluated.copy()
     for i, (e, g) in enumerate(problems):
         if evaluated[i] and e == g:
             # all-diagonal optimum (the host's shortcut): len(e) diag ops
             all_n[i] = len(e)
             on_card[i] = False
+    rows = np.flatnonzero(on_card)
+    tally(problems=len(problems), device_problems=len(rows),
+          nw_problems=len(rows),
+          device_cells=sum(len(problems[i][0]) * len(problems[i][1])
+                           for i in rows))
+    r = service_eval("nw", problems, device)
+    if r is not None:
+        tally(batches=1)
+        return r
     for rows, (_score, ops, nsteps) in _traceback_batches(
             problems, on_card, device, batch_nw_traceback_cuda,
             "pintron_nw"):
         w = min(L, ops.shape[1])
         all_ops[rows, :w] = ops[:, :w]
         all_n[rows] = nsteps
-        tally(device_problems=len(rows), nw_problems=len(rows),
-              device_cells=sum(len(problems[i][0]) * len(problems[i][1])
-                               for i in rows))
     return all_ops, all_n, evaluated
 
 
@@ -367,7 +487,15 @@ def _eval_gap_device(problems: List[Tuple[bytes, bytes]],
     all_sm = np.zeros(len(problems), dtype=np.int64)
     all_ops = np.zeros((len(problems), L), dtype=np.int8)
     all_n = np.zeros(len(problems), dtype=np.int64)
-    tally(problems=len(problems))
+    rows = np.flatnonzero(evaluated)
+    tally(problems=len(problems), device_problems=len(rows),
+          gap_problems=len(rows),
+          device_cells=sum(3 * (len(problems[i][0]) + 1)
+                           * (len(problems[i][1]) + 1) for i in rows))
+    r = service_eval("gap", problems, device)
+    if r is not None:
+        tally(batches=1)
+        return r
     for rows, (sm, ops, nsteps) in _traceback_batches(
             problems, evaluated, device, batch_gap_traceback_cuda,
             "pintron_gap"):
@@ -375,9 +503,6 @@ def _eval_gap_device(problems: List[Tuple[bytes, bytes]],
         all_ops[rows, :w] = ops[:, :w]
         all_sm[rows] = sm
         all_n[rows] = nsteps
-        tally(device_problems=len(rows), gap_problems=len(rows),
-              device_cells=sum(3 * (len(problems[i][0]) + 1)
-                               * (len(problems[i][1]) + 1) for i in rows))
     return all_sm, all_ops, all_n, evaluated
 
 
@@ -403,7 +528,15 @@ def _eval_rb_device(problems: List[Tuple[bytes, bytes]],
     stride = max((len(p) for _, p in problems), default=0) + 1
     vals = np.zeros((len(problems), stride), dtype=np.int64)
     pos = np.zeros((len(problems), stride), dtype=np.int64)
-    tally(problems=len(problems))
+    on_card = np.flatnonzero(evaluated)
+    tally(problems=len(problems), device_problems=len(on_card),
+          rb_problems=len(on_card),
+          device_cells=sum((len(problems[i][0]) + 1)
+                           * (len(problems[i][1]) + 1) for i in on_card))
+    r = service_eval("rb", problems, device)
+    if r is not None:
+        tally(batches=1)
+        return r
     pending = []
     for (N, M), rows in _buckets(problems, evaluated):
         s1, l1 = _encode([problems[i][0] for i in rows], N)
@@ -413,11 +546,93 @@ def _eval_rb_device(problems: List[Tuple[bytes, bytes]],
                 *from_numpy_batch(s1, l1, s2, l2, device=device),
                 max_rows=M)
         pending.append((np.asarray(rows), r))
-        tally(device_problems=len(rows), rb_problems=len(rows), batches=1,
-              device_cells=sum((len(problems[i][0]) + 1)
-                               * (len(problems[i][1]) + 1) for i in rows))
+        tally(batches=1)
     for rows, (v, q) in pending:
         w = min(stride, v.shape[1])
         vals[rows, :w] = v[:, :w].cpu().numpy()
         pos[rows, :w] = q[:, :w].cpu().numpy()
     return vals, pos, evaluated
+
+
+# ---- stage 4 -----------------------------------------------------------------
+
+def eval_edit_batch(pairs: List[Tuple[bytes, bytes]]):
+    """Bounded entry point: batched full unit-cost edit distances
+    (refine.c:50-83, the recurrence of the host
+    ``factorize.alignments.edit_distance``) for the predicted-introns
+    donor/acceptor stats (main-intron-agreement.c:804-904): two
+    independent <= 15 nt window distances per (intron, supporting EST)
+    pair.  Returns int64 distances, or None when the device is wedged
+    (the caller computes each pair on the host); a failed batch
+    raises."""
+    return device_call(_eval_edit_batch_device, pairs, _device(),
+                       what="edit-distance device batch")
+
+
+def _eval_edit_batch_device(pairs: List[Tuple[bytes, bytes]],
+                            device: torch.device) -> np.ndarray:
+    out = np.zeros(len(pairs), dtype=np.int64)
+    rest = []
+    for i, (a, b) in enumerate(pairs):
+        if a == b:
+            continue  # distance 0, no DP
+        # seq1 = the longer string (columns), seq2 = rows
+        if len(a) < len(b):
+            a, b = b, a
+        rest.append((i, a, b))
+    tally(problems=len(pairs))
+    if not rest:
+        return out
+    tally(device_problems=len(rest), edit_problems=len(rest),
+          device_cells=sum(len(a) * len(b) for _, a, b in rest))
+    r = service_eval("edit", [(a, b) for _, a, b in rest], device)
+    if r is not None:
+        tally(batches=1)
+        out[[i for i, _a, _b in rest]] = r
+        return out
+
+    groups = {}
+    for i, a, b in rest:
+        groups.setdefault((_p4(len(a)), _p4(max(len(b), 1))),
+                          []).append((i, a, b))
+    pending = []
+    for (N, M), items in sorted(groups.items()):
+        Bp = _p2(len(items), lo=64)
+        s1, l1 = _encode([a for _, a, _ in items], N, rows=Bp)
+        s2, l2 = _encode([b for _, _, b in items], M, rows=Bp)
+        with torch.profiler.record_function("pintron_edit"):
+            r = batch_edit_distance_score_cuda(
+                *from_numpy_batch(s1, l1, s2, l2, device=device),
+                max_rows=M)
+        pending.append((items, r))
+        tally(batches=1)
+    for items, r in pending:
+        out[[i for i, _a, _b in items]] = r[:len(items)].cpu().numpy()
+    return out
+
+
+def pwm_scores_batched(rows: np.ndarray, wpwm: np.ndarray, den: float):
+    """Bounded entry point: MatInspector scores of (B, L) int8 window
+    codes against one cv-weighted (4, L) float32 matrix (the BPS
+    sweep of ``pintron_tpu_torch.factorize.classify``).  Returns (B,)
+    float32 scores, or None when the device is wedged; a failed batch
+    raises."""
+    return device_call(_pwm_scores_device, rows, wpwm, den, _device(),
+                       what="stage-4 PWM device batch")
+
+
+def _pwm_scores_device(rows: np.ndarray, wpwm: np.ndarray, den: float,
+                       device: torch.device) -> np.ndarray:
+    rows = np.ascontiguousarray(rows, dtype=np.int8)
+    wpwm = np.ascontiguousarray(wpwm, dtype=np.float32)
+    tally(pwm_windows=rows.shape[0])
+    r = service_eval("pwm", (rows, wpwm, float(den)), device)
+    if r is not None:
+        tally(batches=1)
+        return r
+    with torch.profiler.record_function("pintron_pwm"):
+        scores = pwm_scores_cuda(torch.from_numpy(rows).to(device),
+                                 torch.from_numpy(wpwm).to(device),
+                                 float(den))
+    tally(batches=1)
+    return scores.cpu().numpy()

@@ -1,21 +1,33 @@
 """Pipeline CLI of the port (``python -m pintron_tpu_torch.pipeline``).
 
 The counterpart of ``pintron_tpu.pipeline``, with the same flags plus
-``--device``.  With a device, STEP 2 (est-fact) runs the port's
-``run_est_fact`` there, in this process: a CUDA context must never be
-created in a forked child, so the device stage is not run under the
-fork watchdog.  STEPs 3-8 and the cleanup are
-``pintron_tpu.pipeline.pintron_pipeline`` itself, entered with resume
-on so that it finds STEP 2's outputs and runs the rest on its host
-paths.  Without a device the whole run is ``pintron_tpu``'s host path.
+``--device``.  With a device:
+
+  * STEP 2 (est-fact) runs the port's ``run_est_fact`` there, in this
+    process: a CUDA context must never be created in a forked child, so
+    the device stages are not run under the fork watchdog;
+  * STEP 3 (exon agreement) runs ``pintron_tpu``'s host stage in a
+    forked child under its resource guard (``--set-max-exon-agreement-
+    time``), as ``pintron_tpu.pipeline`` runs it;
+  * STEP 4 (intron agreement) runs the port's ``run_intron_agreement``
+    on the device, in this process;
+  * STEPs 5-8 and the cleanup are ``pintron_tpu.pipeline.
+    pintron_pipeline`` itself, entered with resume on so that it finds
+    the outputs of STEPs 2-4 and runs the rest on its host paths.
+
+Without a device the whole run is ``pintron_tpu``'s host path.  With
+``PINTRON_TORCH_SERVICE`` set (the batch driver sets it), the device
+batches of STEPs 2 and 4 go to the device service instead, and this
+process never touches CUDA.
 
 ``PINTRON_TORCH_PROFILE=<dir>`` writes a ``torch.profiler`` trace of
 the whole pipeline there; the device batches carry the spans
 ``pintron_kband_full``, ``pintron_kband_band``, ``pintron_nw``,
-``pintron_gap`` and ``pintron_rowmin``.  STEP 2 logs one line,
-``est-fact device flow: {...}``, with the offload counters per family,
-the kernel launches, the host DP cells by family and the device share
-of the DP cells.
+``pintron_gap``, ``pintron_rowmin``, ``pintron_edit`` and
+``pintron_pwm``.  STEP 2 logs one line, ``est-fact device flow:
+{...}``, with the offload counters per family, the kernel launches, the
+host DP cells by family and the device share of the DP cells; STEP 4
+logs ``intron-agreement device flow: {...}``.
 """
 
 from __future__ import annotations
@@ -31,12 +43,12 @@ import time
 from pintron_tpu import pipeline as _host
 
 STEP2_ARTIFACTS = ("raw-multifasta-out.txt", "processed-ests.txt")
-# what pintron_tpu's STEPs 3-7 leave behind; a run without --resume
-# removes them, so that the host orchestrator skips STEP 2 alone
-LATER_ARTIFACTS = ("out-agree.txt", "out-after-intron-agree.txt",
-                   "predicted-introns.txt", "build-ests.txt",
-                   "genomic-exonforCCDS.txt", "isoforms.txt",
-                   "CCDS_transcripts.txt", "VariantGTF.txt")
+STEP3_ARTIFACTS = ("out-agree.txt",)
+STEP4_ARTIFACTS = ("out-after-intron-agree.txt", "predicted-introns.txt")
+# what pintron_tpu's STEPs 5-7 leave behind; a run without --resume
+# removes them, so that the host orchestrator skips STEPs 2-4 alone
+LATER_ARTIFACTS = ("build-ests.txt", "genomic-exonforCCDS.txt",
+                   "isoforms.txt", "CCDS_transcripts.txt", "VariantGTF.txt")
 
 
 def _start_profiler():
@@ -57,10 +69,50 @@ def _start_profiler():
     return prof, prof_dir
 
 
+def _run_guarded(fn, minutes: int, artifacts) -> None:
+    """``pintron_tpu.pipeline``'s resource guard for a host stage
+    (reference pintron.py:878-906 ``ulimit -t``): run ``fn`` in a forked
+    child with RLIMIT_CPU and a wall-clock watchdog, and remove the
+    stage's ``artifacts`` when it fails or times out, so that a later
+    --resume cannot pick up a truncated file.  ``minutes <= 0`` runs it
+    inline.  The child touches no CUDA."""
+    if minutes <= 0:
+        fn()
+        return
+    import multiprocessing
+
+    def child():
+        import resource
+        cpu = minutes * 60
+        try:
+            resource.setrlimit(resource.RLIMIT_CPU, (cpu, cpu + 10))
+        except (ValueError, OSError):
+            pass
+        fn()
+
+    proc = multiprocessing.get_context("fork").Process(target=child)
+    proc.start()
+    proc.join(timeout=minutes * 60 + 30)
+    timed_out = proc.is_alive()
+    if timed_out:
+        proc.terminate()
+        proc.join(timeout=10)
+    if timed_out or proc.exitcode != 0:
+        for path in artifacts:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+        raise RuntimeError(
+            "stage exceeded its resource guard or failed "
+            + ("(wall-clock timeout)" if timed_out
+               else f"(exit {proc.exitcode})"))
+
+
 def pintron_pipeline(workdir: str = ".", device=None, **kwargs) -> None:
     """Run the eight pipeline steps over ``workdir``.  ``device`` is the
-    torch device of STEP 2's DP batches (``None``: host only); the
-    other arguments are ``pintron_tpu.pipeline.pintron_pipeline``'s."""
+    torch device of the batches of STEPs 2 and 4 (``None``: host only);
+    the other arguments are ``pintron_tpu.pipeline.pintron_pipeline``'s."""
     for var, use in (("PINTRON_DEVICE", "--device"),
                      ("PINTRON_JAX_PROFILE", "PINTRON_TORCH_PROFILE")):
         if os.environ.get(var):
@@ -72,16 +124,42 @@ def pintron_pipeline(workdir: str = ".", device=None, **kwargs) -> None:
     if device is None:
         _host.pintron_pipeline(**a)
         return
+    from pintron_tpu.stages.min_factorization import run_min_factorization
     from pintron_tpu_torch.stages.est_fact import run_est_fact
+    from pintron_tpu_torch.stages.intron_agreement import \
+        run_intron_agreement
 
     def wpath(name: str) -> str:
         return os.path.join(workdir, name)
 
-    def plog(msg: str) -> None:
-        # the -l/--logfile record pintron_tpu keeps for its own steps
-        if a["pipeline_logfile"]:
-            with open(wpath(a["pipeline_logfile"]), "a") as f:
-                f.write(f"[cmd-2-est-fact] {msg}\n")
+    def run_step(label: str, artifacts, fn) -> None:
+        """Run one step, or skip it under --resume when its artifacts
+        exist; the -l/--logfile record pintron_tpu keeps for its own
+        steps (begin, then ok or FAILED with the wall time)."""
+        if a["resume"] and all(os.path.exists(wpath(n)) for n in artifacts):
+            log.info("%s [resume] outputs found, skipping", label)
+            return
+        log.info("%s on %s...", label, device)
+
+        def plog(msg):
+            if a["pipeline_logfile"]:
+                with open(wpath(a["pipeline_logfile"]), "a") as f:
+                    f.write(f"[{label}] {msg}\n")
+
+        plog("begin")
+        t = time.time()
+        try:
+            fn()
+        except BaseException as e:
+            plog(f"FAILED after {time.time() - t:.1f}s: "
+                 f"{type(e).__name__}: {e}")
+            raise
+        plog(f"ok ({time.time() - t:.1f}s)")
+
+    def step3():
+        with open(wpath("raw-multifasta-out.txt")) as fin, \
+                open(wpath("out-agree.txt"), "w") as fout:
+            run_min_factorization(fin, fout)
 
     log = a["log"]
     prof, prof_dir = _start_profiler()
@@ -92,28 +170,21 @@ def pintron_pipeline(workdir: str = ".", device=None, **kwargs) -> None:
             raise FileNotFoundError(wpath(f))
         if f != name:
             shutil.copyfile(wpath(f), wpath(name))
+    if not a["resume"]:
+        for name in LATER_ARTIFACTS:
+            if os.path.exists(wpath(name)):
+                os.remove(wpath(name))
 
-    if a["resume"] and all(os.path.exists(wpath(n))
-                           for n in STEP2_ARTIFACTS):
-        log.info("STEP  2:  [resume] spliced alignments found, skipping")
-    else:
-        log.info("STEP  2:  Computing the spliced alignments on %s...",
-                 device)
-        plog("begin")
-        t = time.time()
-        try:
-            run_est_fact(workdir, config=a["config"], device=device)
-        except BaseException as e:
-            plog(f"FAILED after {time.time() - t:.1f}s: "
-                 f"{type(e).__name__}: {e}")
-            raise
-        plog(f"ok ({time.time() - t:.1f}s)")
-        if not a["resume"]:
-            for name in LATER_ARTIFACTS:
-                if os.path.exists(wpath(name)):
-                    os.remove(wpath(name))
+    run_step("cmd-2-est-fact", STEP2_ARTIFACTS,
+             lambda: run_est_fact(workdir, config=a["config"],
+                                  device=device))
+    run_step("cmd-3-min-factorization", STEP3_ARTIFACTS,
+             lambda: _run_guarded(step3, a["max_exon_agreement_time"],
+                                  [wpath(n) for n in STEP3_ARTIFACTS]))
+    run_step("cmd-4-intron-agreement", STEP4_ARTIFACTS,
+             lambda: run_intron_agreement(workdir, device=device))
 
-    log.info("STEPs 3-8 on pintron_tpu's host paths")
+    log.info("STEPs 5-8 on pintron_tpu's host paths")
     _host.pintron_pipeline(**dict(a, resume=True))
     if prof is not None:
         prof.stop()
@@ -129,7 +200,7 @@ def main(argv=None) -> int:
         description="PIntron on PyTorch/CUDA: gene-structure prediction "
                     "by spliced alignment of ESTs/mRNAs")
     p.add_argument("--device", default=None,
-                   help="torch device of STEP 2's DP batches "
+                   help="torch device of the batches of STEPs 2 and 4 "
                         "(cuda, cuda:N or cpu); default: host only")
     p.add_argument("-g", "--genomic", dest="genome_filename",
                    default="genomic.txt")

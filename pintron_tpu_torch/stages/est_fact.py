@@ -22,6 +22,12 @@ A problem the offload did not evaluate (an oversized one) is left out
 of the fill, and the cascade computes it on the host.  Outputs are
 byte-identical to the host path by construction.
 
+With the device service set (``PINTRON_TORCH_SERVICE``), the batches go
+to the service, and a large locus is sharded round-robin over fork
+workers (``_run_units_device_forked``), as pintron_tpu's service mode
+does: the host side of the flow runs on every core, and the service
+merges the workers' batches.
+
 Everything device-free (MEG construction, candidate enumeration, the
 collect pass, the cascade, the writers) is imported from
 ``pintron_tpu.stages.est_fact``.
@@ -61,6 +67,11 @@ from pintron_tpu_torch.ops import kband, offload
 # torch.profiler trace (no cost when no profiler runs)
 _span = torch.profiler.record_function
 
+# smallest locus (records in ests.txt) that the service mode shards over
+# fork workers: pintron_tpu's value (est_fact.py:2079-2092), not one
+# measured for the port
+FORK_MIN_RECORDS = 128
+
 OUTPUT_NAMES = ("raw-multifasta-out.txt", "megs.txt",
                 "processed-megs.txt", "processed-megs-info.txt",
                 "processed-ests.txt", "meg-edges.txt")
@@ -92,15 +103,20 @@ def _native_lib():
 
 def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                       gen_seq_bytes: bytes, config: Config,
-                      ests_path: str, fresh: bool = False):
-    """Device flow over every unit of ``ests_path``.
+                      ests_path: str, fresh: bool = False,
+                      shard=(0, 1)):
+    """Device flow over the units of ``ests_path`` that this process
+    owns: with ``shard=(w, n)``, units w, w+n, w+2n, ... (the
+    data-parallel EST axis of main-est-fact.c:249-291, split
+    round-robin over the sharded flow's fork workers).
 
     Rounds mirror the sequential control flow: round 1 runs every
     unit's first EST, later rounds run the RC copies of units whose
     forward strand failed plus any timeout-ladder retries
     (compute-est-fact.c:192-293; main-est-fact.c:247-291).
 
-    Returns the per-record six-blob tuples in file order."""
+    Returns [(unit index, six-blob tuple)] for the owned units, in file
+    order."""
     lib = _native_lib()
     # the native memo fast-paths on the genomic and suffix-tree buffers'
     # addresses; holding them in the reference module keeps a freed
@@ -119,7 +135,7 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
 
     attempts = [{"unit": i, "est_idx": 0, "inc": 0,
                  "prev_tp": 0, "prev_te": 0}
-                for i in range(len(units))]
+                for i in range(shard[0], len(units), shard[1])]
     while attempts:
         round_recs = []
         problems = []        # deduped global device batch
@@ -358,7 +374,70 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
         attempts = next_attempts
 
     offload.tally(device_runs=1)
-    return [tuple(s.getvalue() for s in b) for b in bufs]
+    return [(i, tuple(s.getvalue() for s in bufs[i]))
+            for i in range(shard[0], len(units), shard[1])]
+
+
+def _run_units_device_forked(gen: mf.EstInfo, tree: SuffixTree,
+                             gen_seq_bytes: bytes, config: Config,
+                             ests_path: str, fresh: bool, nworkers: int):
+    """The device flow sharded over ``nworkers`` fork workers, which all
+    send their batches to the one device service: the host side of the
+    flow (MEG construction, collect passes, cascades) runs on as many
+    cores, and the service merges the workers' batches.  The workers
+    never create a CUDA context (nor does this process, which forks
+    them).  Returns (per-record blobs in file order, the workers' host
+    DP cells by family); the workers' offload counters are added to
+    this process's.  A failed worker raises here, after every worker
+    has ended: no other path stands in for it."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("fork")
+
+    def child_main(w, pw):
+        # report only this worker's own work: the counters inherited
+        # from the parent are not merged again
+        offload.reset_stats()
+        dp_census_reset()
+        try:
+            res = _run_units_device(gen, tree, gen_seq_bytes, config,
+                                    ests_path, fresh=fresh,
+                                    shard=(w, nworkers))
+            pw.send(("ok", res, dict(offload.STATS), dp_census() or {}))
+        except BaseException as e:  # noqa: BLE001 - reported to the parent
+            pw.send(("err", f"{type(e).__name__}: {e}", None, None))
+        finally:
+            pw.close()
+
+    workers = []
+    for w in range(nworkers):
+        pr, pw = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=child_main, args=(w, pw))
+        proc.start()
+        pw.close()
+        workers.append((pr, proc))
+
+    merged, census, errors = {}, {}, []
+    for w, (pr, proc) in enumerate(workers):
+        try:
+            status, payload, stats, cells = pr.recv()
+        except (EOFError, OSError) as e:
+            status, payload = "err", f"no reply ({type(e).__name__})"
+        pr.close()
+        proc.join()
+        if status != "ok":
+            errors.append(f"worker {w} (exit {proc.exitcode}): {payload}")
+            continue
+        merged.update(payload)
+        offload.tally(**{k: v for k, v in stats.items()
+                         if k != "device_runs"})
+        for k, v in cells.items():
+            census[k] = census.get(k, 0) + v
+    if errors:
+        raise RuntimeError("sharded STEP 2 device flow failed: "
+                           + "; ".join(errors))
+    offload.tally(device_runs=1)
+    return [merged[i] for i in sorted(merged)], census
 
 
 @_span("pintron_step2_nw_phase")
@@ -521,7 +600,11 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
     ``device=None`` runs pintron_tpu's host path (the fork pool).  With
     a device (``"cuda"``, ``"cuda:N"`` or ``"cpu"``) every DP family's
     batches run there; ``"cuda"`` raises when no CUDA device is
-    available."""
+    available.  With the device service set (``PINTRON_TORCH_SERVICE``)
+    the batches go to the service, and a locus of at least
+    ``FORK_MIN_RECORDS`` records is sharded over ``PINTRON_EST_WORKERS``
+    fork workers (default: one per core), as pintron_tpu's service mode
+    does (est_fact.py:2079-2092)."""
     if os.environ.get("PINTRON_DEVICE"):
         raise RuntimeError(
             "PINTRON_DEVICE is set: pintron_tpu would run its JAX device "
@@ -530,14 +613,8 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
     if device is None:
         _ref.run_est_fact(workdir, config=config, log=log)
         return
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device}: torch.cuda.is_available() is "
-                           "false")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
+    device = offload.use_device(device)
     _native_lib()
-    offload.set_device(device)
 
     sys.setrecursionlimit(1_000_000)
     from pintron_tpu.runtime import (TimerRegistry, log_info_extended,
@@ -583,18 +660,36 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
     timers["algorithm"].start()
     # fresh-locus benchmark mode: wipe the persistent result memo
     fresh = bool(os.environ.get("PINTRON_FRESH_MEMO"))
-    results = _run_units_device(gen, SuffixTree(gen_seq_bytes),
-                                gen_seq_bytes, config, wpath("ests.txt"),
-                                fresh=fresh)
+    nworkers = (int(os.environ.get("PINTRON_EST_WORKERS", "0"))
+                or (os.cpu_count() or 1))
+    with open(wpath("ests.txt")) as fh:
+        n_records = sum(1 for line in fh if line.startswith(">"))
+    tree = SuffixTree(gen_seq_bytes)
+    sharded = (offload.service_socket() is not None and nworkers > 1
+               and n_records >= FORK_MIN_RECORDS)
+    if sharded:
+        # host cascade on every core, device batches merged on the
+        # service; small loci skip the forks, whose fixed cost (fork,
+        # pipes, result pickling) exceeds the work they would share
+        results, host_cells = _run_units_device_forked(
+            gen, tree, gen_seq_bytes, config, wpath("ests.txt"), fresh,
+            nworkers)
+    else:
+        results = [blobs for _i, blobs in _run_units_device(
+            gen, tree, gen_seq_bytes, config, wpath("ests.txt"),
+            fresh=fresh)]
+        host_cells = dp_census() or {}
     timers["algorithm"].stop()
     checkpoint("alignment-end")
-    host_cells = dp_census() or {}
     dev_cells = offload.STATS["device_cells"] - cells0
     total = dev_cells + sum(host_cells.values())
     logging.getLogger("pintron").info(
         "est-fact device flow: %s", json.dumps(
-            {"device": str(device), "stats": offload.STATS,
-             "launches": kband.LAUNCHES, "host_dp_cells": host_cells,
+            {"device": str(offload.service_device() or device),
+             "service": offload.service_socket(),
+             "workers": nworkers if sharded else 1,
+             "stats": offload.STATS, "launches": kband.LAUNCHES,
+             "host_dp_cells": host_cells,
              "device_cell_share": dev_cells / total if total else 0.0},
             sort_keys=True))
 

@@ -9,15 +9,17 @@ from pintron_tpu_torch import pipeline
 
 
 def test_pipeline_cpu_device_byte_identical(golden, tmp_path, monkeypatch):
-    """STEP 2 on the device, STEPs 3-8 through pintron_tpu's orchestrator;
-    stale outputs of an earlier run's later steps are not picked up."""
+    """STEPs 2 and 4 on the device, STEP 3 on the host in the port, STEPs
+    5-8 through pintron_tpu's orchestrator; stale outputs of an earlier
+    run's later steps are not picked up."""
     monkeypatch.delenv("PINTRON_DEVICE", raising=False)
     gold = golden("test-AMBN")
     work = tmp_path / "ambn"
     work.mkdir()
     for name in ("genomic.txt", "ests.txt"):
         shutil.copy(gold / name, work / name)
-    for name in pipeline.LATER_ARTIFACTS:
+    for name in (pipeline.STEP3_ARTIFACTS + pipeline.STEP4_ARTIFACTS
+                 + pipeline.LATER_ARTIFACTS):
         (work / name).write_text("stale\n")
     rc = pipeline.main(["--device", "cpu", "--workdir", str(work),
                         "-g", "genomic.txt", "-s", "ests.txt",
@@ -30,6 +32,7 @@ def test_pipeline_cpu_device_byte_identical(golden, tmp_path, monkeypatch):
             f"{name} differs"
     log = (work / "pintron-log.txt").read_text()
     assert "est-fact device flow: " in log
+    assert "intron-agreement device flow: " in log
 
 
 @pytest.mark.parametrize("var", ["PINTRON_DEVICE", "PINTRON_JAX_PROFILE"])
