@@ -1,18 +1,21 @@
 """pintron-tpu-torch: the PyTorch/CUDA port of pintron-tpu.
 
-A second package beside ``pintron_tpu``, which stays the reference.  The
-port owns the device code: plain PyTorch versions of the device ops,
-hand-written CUDA kernels for NVIDIA Hopper (``csrc/``), the offload
-that feeds them, the device flows of est-fact (STEP 2) and intron
-agreement (STEP 4), the GPU-owning device service and the multi-locus
-batch driver that shares it.  The host
-code (native C runtime, suffix tree, MEG construction, the other
-stages) is imported from ``pintron_tpu`` unchanged.  This package
-imports ``torch`` and never ``jax``.
+A second package beside ``pintron_tpu``, which stays the reference, and
+independent of it: the port carries its own copy of the host pipeline
+(native C runtime, suffix tree, MEG construction, the filter cascade,
+STEPs 1-8, the regression comparison) and owns the device code: plain
+PyTorch versions of the device ops, hand-written CUDA kernels for
+NVIDIA Hopper (``csrc/``), the offload that feeds them, the device
+flows of est-fact (STEP 2) and intron agreement (STEP 4), the
+GPU-owning device service and the multi-locus batch driver that shares
+it.  This package imports ``torch`` and never ``jax`` nor anything of
+``pintron_tpu``.  Its entry points run on the card (``device="cuda"``)
+unless the caller asks for ``"cpu"`` (the plain ops) or ``"host"`` (the
+native host path with no device batch).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-from pintron_tpu.config import Config
+from pintron_tpu_torch.config import Config
 
 __all__ = ["Config", "__version__"]

@@ -1,22 +1,23 @@
 """Multi-locus batch driver of the port (``python -m pintron_tpu_torch.batch``).
 
     python -m pintron_tpu_torch.batch --manifest M [--jobs N] \
-        [--summary S] [--device cuda|cpu]
+        [--summary S] [--device cuda|cuda:N|cpu|host]
 
 The counterpart of ``pintron_tpu.batch``, with the same manifest (a TSV
 of ``workdir, genomic, ests, gene[, organism]``, relative paths against
 the manifest's directory) and the same summary (one JSON line per job,
-then the totals).  With ``--device``, the driver starts one device
-service on that device (``pintron_tpu_torch.devservice``), points every
-worker at it (``PINTRON_TORCH_SERVICE``), and each worker, one spawned
-process per locus, runs the port's ``pintron_pipeline`` there: the
-batches of STEPs 2 and 4 of every locus go to the one process that owns
-the device, and no worker creates a CUDA context.  By default as many
-loci run at once as there are cores, as in the host batch, and each
-locus's STEP 2 shards over the cores left to it
+then the totals).  Each job, one spawned process per locus, runs the
+port's ``pintron_pipeline``.  With a torch device (``--device cuda``,
+the default, ``cuda:N`` or ``cpu``), the driver starts one device
+service on that device (``pintron_tpu_torch.devservice``) and points
+every worker at it (``PINTRON_TORCH_SERVICE``): the batches of STEPs 2
+and 4 of every locus go to the one process that owns the device, and
+no worker creates a CUDA context.  With ``--device host`` no service
+starts and every locus runs the native host path, the JAX package's
+default mode.  By default as many loci run at once as there are cores,
+and each locus's STEP 2 shards over the cores left to it
 (``PINTRON_EST_WORKERS`` = cores // loci at once): with at least as
 many loci as cores that is one worker, so STEP 2 is not sharded.
-Without ``--device`` the run is ``pintron_tpu.batch``'s host batch.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import sys
 import tempfile
 import time
 
-from pintron_tpu.batch import read_manifest
 from pintron_tpu_torch.ops import offload
 
 
@@ -61,6 +61,33 @@ def _run_job(job, device):
 def _job_worker(q, job, device):
     """Module-level so that the spawn context can pickle it."""
     q.put(_run_job(job, device))
+
+
+def read_manifest(path: str):
+    """The manifest's jobs as (workdir, genomic, ests, gene, organism),
+    relative paths resolved against the manifest's directory."""
+    base = os.path.dirname(os.path.abspath(path))
+
+    def resolve(p):
+        return p if os.path.isabs(p) else os.path.join(base, p)
+
+    jobs = []
+    with open(path) as f:
+        for ln, raw in enumerate(f, start=1):
+            line = raw.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split("\t")
+            if len(parts) < 4:
+                raise ValueError(f"{path}:{ln}: need workdir, genomic, "
+                                 f"ests, gene[, organism]")
+            workdir = resolve(parts[0])
+            genomic = resolve(parts[1])
+            ests = resolve(parts[2])
+            gene = parts[3]
+            organism = parts[4] if len(parts) > 4 else "unknown"
+            jobs.append((workdir, genomic, ests, gene, organism))
+    return jobs
 
 
 def start_service(device: str, timeout_s: float = 120.0):
@@ -141,6 +168,16 @@ def run_jobs(jobs, n_jobs: int, device):
     return results
 
 
+def _check_card(device) -> None:
+    """``cuda`` without a card raises here, before a service starts (the
+    service, which owns the card, would fail later and less plainly)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: torch.cuda.is_available() "
+                           "is false")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pintron-tpu-torch-batch",
                                 description=__doc__.split("\n\n")[0])
@@ -150,17 +187,14 @@ def main(argv=None) -> int:
                    help="concurrent loci (default: the CPU count)")
     p.add_argument("--summary", default="",
                    help="write one JSON line per job to this file")
-    p.add_argument("--device", default=None,
-                   help="torch device of the service that runs the "
-                        "batches of STEPs 2 and 4 (cuda, cuda:N or cpu); "
-                        "default: pintron_tpu's host batch")
+    p.add_argument("--device", default="cuda",
+                   help="where the batches of STEPs 2 and 4 run: the "
+                        "torch device of the service (cuda, the default, "
+                        "cuda:N or cpu), or host (no service, the native "
+                        "host path)")
     args = p.parse_args(argv)
-    if args.device is None:
-        from pintron_tpu import batch as _host
-        host_argv = ["--manifest", args.manifest, "--jobs", str(args.jobs)]
-        if args.summary:
-            host_argv += ["--summary", args.summary]
-        return _host.main(host_argv)
+    if not offload.is_host(args.device):
+        _check_card(args.device)
 
     jobs = read_manifest(args.manifest)
     cpus = os.cpu_count() or 1
@@ -169,13 +203,17 @@ def main(argv=None) -> int:
     os.environ.setdefault("PINTRON_EST_WORKERS",
                           str(max(1, cpus // n_jobs)))
     t0 = time.time()
-    proc, sock = start_service(args.device)
-    os.environ[offload.SERVICE_ENV] = sock
-    try:
+    report = None
+    if offload.is_host(args.device):
         results = run_jobs(jobs, n_jobs, args.device)
-    finally:
-        os.environ.pop(offload.SERVICE_ENV, None)
-        report = stop_service(proc, sock)
+    else:
+        proc, sock = start_service(args.device)
+        os.environ[offload.SERVICE_ENV] = sock
+        try:
+            results = run_jobs(jobs, n_jobs, args.device)
+        finally:
+            os.environ.pop(offload.SERVICE_ENV, None)
+            report = stop_service(proc, sock)
     ok = sum(1 for r in results if r["ok"])
     summary = {"jobs": len(jobs), "ok": ok, "failed": len(jobs) - ok,
                "seconds": round(time.time() - t0, 2), "device": args.device,

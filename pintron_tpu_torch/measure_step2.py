@@ -1,5 +1,5 @@
 """STEP 2 (est-fact) and STEP 4 (intron agreement) throughput of the
-port against pintron_tpu's host path, on the two largest golden loci
+port against its host path, on the two largest golden loci
 whose inputs ship in the repo (TP53, issue-13).
 
     python -m pintron_tpu_torch.measure_step2 [--reps 4] [--out FILE]
@@ -9,8 +9,9 @@ STEP 2 modes, each run on a fresh copy of the locus with a fresh memo
 
   cuda   the port's device flow, every DP family on the GPU kernels;
   cpu    the same flow with the plain PyTorch versions on the host CPU;
-  host1  pintron_tpu's host path with one worker (one native call);
-  host8  pintron_tpu's host path, 8-worker fork pool;
+  host1  the host path (``device="host"``) with one worker (one native
+         call);
+  host8  the host path, 8-worker fork pool;
   svc8   the port's device flow sharded over 8 fork workers, whose
          batches all go to one device service on the GPU
          (``pintron_tpu_torch.devservice``, started once for the run);
@@ -20,7 +21,7 @@ STEP 2 modes, each run on a fresh copy of the locus with a fresh memo
 STEP 4 modes, from the goldens' STEP 3 outputs, byte-compared too:
 
   step4-cuda  the port's stage, BPS sweep and edit stats on the GPU;
-  step4-host  pintron_tpu's host stage.
+  step4-host  the host stage (``device="host"``).
 
 Every mode runs once untimed first (kernel build, CUDA start-up).  Each
 repetition runs the modes in turn, forwards on even repetitions and
@@ -30,13 +31,15 @@ of each step per locus (``torch.profiler``, CPU and CUDA activity,
 every thread) gives the device time by kernel, the device's busy share
 of the wall time, the host time of STEP 2's device-flow phases (spans
 ``pintron_step2_*``), the offload counters and kernel launches per
-family, the host DP cells by family (``pintron_tpu.native.dp_census``)
+family, the host DP cells by family (``pintron_tpu_torch.native.dp_census``)
 and the device share of the DP cells.  Last, per locus, 3 timed runs
 (after one untimed) of ``svc1`` and of ``svc8`` with each worker timed
 in its own process: its start after the call, wall, CPU time, and the
 time it waited on service round trips.  Writes one JSON file (default
 ``chiprun_out/step2_measure.json``, with the service's report: requests,
 merged batches, evaluation seconds per op) and prints a summary.
+``--profile-only`` runs only the profiled runs (after one untimed cuda
+run of each step per locus).
 """
 
 from __future__ import annotations
@@ -61,12 +64,12 @@ STAGE2 = ("raw-multifasta-out.txt", "processed-ests.txt", "megs.txt",
 CASES = ("test-TP53", "test-issue-13")
 # mode -> (device, PINTRON_EST_WORKERS, through the service)
 MODES = {"cuda": ("cuda", None, False), "cpu": ("cpu", None, False),
-         "host1": (None, "1", False), "host8": (None, "8", False),
+         "host1": ("host", "1", False), "host8": ("host", "8", False),
          "svc8": ("cuda", "8", True), "svc4": ("cuda", "4", True),
          "svc1": ("cuda", "1", True)}
 STEP4_INPUTS = ("genomic.txt", "processed-ests.txt", "out-agree.txt")
 STEP4 = ("out-after-intron-agree.txt", "predicted-introns.txt")
-STEP4_MODES = {"step4-cuda": "cuda", "step4-host": None}
+STEP4_MODES = {"step4-cuda": "cuda", "step4-host": "host"}
 
 
 def _card() -> str:
@@ -127,7 +130,7 @@ def _run4(case_dir: str, tmp: str, mode: str) -> float:
 
 def _profile(run) -> dict:
     """Profile one run (``run()`` returns its wall seconds)."""
-    from pintron_tpu.native import dp_census, dp_census_reset
+    from pintron_tpu_torch.native import dp_census, dp_census_reset
     from pintron_tpu_torch.ops import kband, offload
     offload.reset_stats()
     kband.reset_launches()
@@ -243,6 +246,8 @@ def _timed(out, case, n_ests, modes, run, reps, gpu) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--reps", type=int, default=4)
+    p.add_argument("--profile-only", action="store_true",
+                   help="only the profiled cuda runs of each step")
     p.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                  "step2_measure.json"))
     args = p.parse_args(argv)
@@ -251,8 +256,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     if os.environ.get("PINTRON_DEVICE"):
-        raise RuntimeError("unset PINTRON_DEVICE (pintron_tpu would run "
-                           "its JAX flow)")
+        raise RuntimeError("unset PINTRON_DEVICE (the JAX package's "
+                           "switch; the port refuses it)")
     os.environ["PINTRON_FRESH_MEMO"] = "1"
     gpu = _card()
     out = {"gpu": gpu, "torch": torch.__version__, "reps": args.reps,
@@ -267,10 +272,15 @@ def main(argv=None) -> int:
                 tf.extractall(case_dir, filter="data")
             with open(os.path.join(case_dir, "ests.txt")) as f:
                 n_ests = sum(1 for ln in f if ln.startswith(">"))
-            _timed(out, case, n_ests, list(MODES),
-                   lambda m: _run(case_dir, tmp, m, sock), args.reps, gpu)
-            _timed(out, case, n_ests, list(STEP4_MODES),
-                   lambda m: _run4(case_dir, tmp, m), args.reps, gpu)
+            if args.profile_only:
+                _run(case_dir, tmp, "cuda", sock)
+                _run4(case_dir, tmp, "step4-cuda")
+            else:
+                _timed(out, case, n_ests, list(MODES),
+                       lambda m: _run(case_dir, tmp, m, sock), args.reps,
+                       gpu)
+                _timed(out, case, n_ests, list(STEP4_MODES),
+                       lambda m: _run4(case_dir, tmp, m), args.reps, gpu)
             for key, run in (
                     ("step2", lambda: _run(case_dir, tmp, "cuda", sock)),
                     ("step4", lambda: _run4(case_dir, tmp, "step4-cuda"))):
@@ -285,7 +295,7 @@ def main(argv=None) -> int:
                       f"{prof['launches']}, stats {prof['stats']}, host "
                       f"phases {prof['host_phases_ms']}  [{gpu}]",
                       flush=True)
-            for workers in (1, 8):
+            for workers in (() if args.profile_only else (1, 8)):
                 runs = _trace_workers(case_dir, tmp, sock, workers)
                 out["workers_trace"][f"{case}|svc{workers}"] = runs
                 for r in runs:

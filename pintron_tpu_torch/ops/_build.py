@@ -106,7 +106,7 @@ def load():
         lib = ctypes.CDLL(str(_build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.pintron_kband.restype = I
-        lib.pintron_kband.argtypes = [P, I, P, I, P, P, P, P, P, I, I, I, P]
+        lib.pintron_kband.argtypes = [P, I, P, I, P, P, P, P, I, I, I, P]
         lib.pintron_edit_score.restype = I
         lib.pintron_edit_score.argtypes = [P, I, P, I, P, P, P, P, I, I, P]
         for name in ("pintron_nw", "pintron_gap"):

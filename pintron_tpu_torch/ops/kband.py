@@ -25,6 +25,10 @@ import torch
 
 from pintron_tpu_torch.ops import align
 
+# the widest band kband_kernel takes: W = 2*k_max+1 <= 17 lanes' worth of
+# 32 cells (csrc/kband.cu)
+KMAX = 256
+
 LAUNCHES = {"kband": 0, "edit_score": 0, "nw": 0, "gap": 0,
             "rowmin": 0, "pwm": 0}
 _LAUNCH_LOCK = threading.Lock()
@@ -71,27 +75,30 @@ def _cuda_launch_context(dev: torch.device, what: str = "K-band"):
 
 def banded_edit_distance_cuda(seq1, len1, seq2, len2, band, *,
                               max_rows: int, k_max: int) -> torch.Tensor:
-    """K-band edit distance; see ``align.banded_edit_distance``."""
+    """K-band edit distance; see ``align.banded_edit_distance``.  The
+    kernel takes ``k_max`` <= ``KMAX``; a wider band raises, on the CPU
+    too (the plain version never stands in for the kernel)."""
     _check_batch(seq1, len1, seq2, len2, band)
     if max_rows < 0 or k_max < 0:
         raise ValueError("max_rows and k_max must be >= 0")
+    if k_max > KMAX:
+        # on every device, so that a CPU run fails where the card would
+        raise ValueError(f"kband_kernel: k_max {k_max} > {KMAX} (band "
+                         f"width {2 * k_max + 1} > {2 * KMAX + 1})")
     dev = seq1.device
     if dev.type == "cpu":
         return align.banded_edit_distance(seq1, len1, seq2, len2, band,
                                           max_rows=max_rows, k_max=k_max)
     B = seq1.shape[0]
-    W = 2 * k_max + 1
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return out
     lib, stream = _cuda_launch_context(dev)
-    band_rows = torch.empty((W, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.pintron_kband(
             seq1.data_ptr(), seq1.shape[1], seq2.data_ptr(), seq2.shape[1],
             len1.data_ptr(), len2.data_ptr(), band.data_ptr(),
-            band_rows.data_ptr(), out.data_ptr(), B, max_rows, k_max,
-            stream)
+            out.data_ptr(), B, max_rows, k_max, stream)
     if err:
         raise RuntimeError(f"kband_kernel launch failed: cudaError {err}")
     _count("kband")

@@ -40,7 +40,6 @@ process never creates a CUDA context.
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 from typing import List, Sequence, Tuple
@@ -49,7 +48,7 @@ import numpy as np
 import torch
 
 from pintron_tpu_torch.ops.align import from_numpy_batch
-from pintron_tpu_torch.ops.kband import (banded_edit_distance_cuda,
+from pintron_tpu_torch.ops.kband import (KMAX, banded_edit_distance_cuda,
                                          batch_edit_distance_score_cuda)
 from pintron_tpu_torch.ops.pwm import pwm_scores_cuda
 from pintron_tpu_torch.ops.traceback import (MAX_WIDTH,
@@ -125,12 +124,28 @@ def set_device(device) -> None:
     _DEVICE = torch.device(device)
 
 
+HOST = "host"
+
+
+def is_host(device) -> bool:
+    """True for the entry points' ``device="host"``: the native host
+    path with no device batch (the JAX package's default mode).  The
+    other values are torch devices (``use_device``); None is none of
+    them."""
+    if device is None:
+        raise ValueError("device=None: pass 'cuda', 'cuda:N', 'cpu' or "
+                         f"'{HOST}'")
+    return isinstance(device, str) and device == HOST
+
+
 def use_device(device) -> torch.device:
     """Check and select the device of this process's batches
     (``"cuda"``, ``"cuda:N"`` or ``"cpu"``).  ``cuda`` raises when no
     CUDA device is available, unless the batches go to the service,
     which owns the device: this process then never touches CUDA, and
     the service's device must be of the same type."""
+    if is_host(device):
+        raise ValueError(f"device={HOST!r} has no device batches")
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
@@ -223,30 +238,22 @@ def service_eval(op: str, payload, device: torch.device):
 
 
 # ---- bounded dispatch ----------------------------------------------------
-# A hung device must not hang the pipeline: every K-band batch runs under
-# device_call(), a wall-clock-bounded worker thread.  On timeout
-# (PINTRON_DEVICE_TIMEOUT_S, default 600 s) the call reports None, the
-# process-wide wedge latch flips, and later device calls short-circuit
-# to None; callers treat None as "memo not filled", so the native
-# cascade recomputes each miss with the byte-identical host DP.  Any
-# other failure (a kernel that does not build or launch, a bad batch)
-# is raised to the caller: the port never moves work to the CPU because
-# a kernel failed.
-
-_WEDGED = False
+# A hung device must not hang the pipeline: every batch runs under
+# device_call(), a wall-clock-bounded worker thread.  A batch that
+# passes the timeout (PINTRON_DEVICE_TIMEOUT_S, default 600 s) raises
+# DeviceTimeout, as any other failure (a kernel that does not build or
+# launch, a bad batch) is raised: the port never moves work to the CPU
+# when a device was asked for.
 
 
-def device_wedged() -> bool:
-    return _WEDGED
+class DeviceTimeout(RuntimeError):
+    """A device batch ran past the dispatch timeout."""
 
 
 def device_call(fn, *args, what: str = "device batch"):
     """Run fn(*args) bounded by the device dispatch timeout.  Returns
-    its result, or None on timeout (wedge latch set); re-raises what
-    fn raised."""
-    global _WEDGED
-    if _WEDGED:
-        return None
+    its result; raises DeviceTimeout when the timeout passes, and
+    re-raises what fn raised."""
     timeout = float(os.environ.get("PINTRON_DEVICE_TIMEOUT_S", "600"))
     if timeout <= 0:  # explicit opt-out: unbounded inline call
         return fn(*args)
@@ -263,12 +270,9 @@ def device_call(fn, *args, what: str = "device batch"):
     t.start()
     t.join(timeout)
     if t.is_alive():
-        _WEDGED = True
         tally(device_timeouts=1)
-        logging.getLogger("pintron").warning(
-            "%s exceeded the %.0fs device dispatch timeout; the host DP "
-            "computes the rest of this process's checks", what, timeout)
-        return None
+        raise DeviceTimeout(f"{what} exceeded the {timeout:g} s device "
+                            "dispatch timeout (PINTRON_DEVICE_TIMEOUT_S)")
     if "err" in box:
         raise box["err"]
     return box.get("ok")
@@ -282,11 +286,17 @@ def _device() -> torch.device:
 
 def eval_kband(problems: List[Tuple[bytes, bytes, int]]):
     """Bounded entry point: evaluate the batch on the device set with
-    ``set_device``, or return None when the device is wedged (the
-    caller skips the memo pre-fill and the native cascade recomputes on
-    host).  A failed batch raises."""
+    ``set_device``.  A failed or timed-out batch raises."""
     return device_call(_eval_kband_device, problems, _device(),
                        what="K-band device batch")
+
+
+def _full_matrix(n: int, ub: int) -> bool:
+    """A K-band problem goes to the full-matrix kernel when its band
+    covers the matrix, or is wider than the band kernel takes (ub >
+    KMAX).  The verdict dist <= ub is the same either way: a path of
+    cost <= ub never leaves the band of half-width ub."""
+    return 2 * ub + 1 >= n or ub > KMAX
 
 
 def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
@@ -313,7 +323,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
     if not rest:
         return ok
     tally(device_problems=len(rest),
-          device_cells=sum(len(a) * len(b) if 2 * ub + 1 >= len(a)
+          device_cells=sum(len(a) * len(b) if _full_matrix(len(a), ub)
                            else len(b) * (2 * ub + 1)
                            for _, a, b, ub in rest))
     r = service_eval("kband", [(a, b, ub) for _, a, b, ub in rest],
@@ -330,7 +340,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
         # every problem with n <= 1024 shares ONE bucket padded to 1024;
         # only longer outliers get their own power-of-four class
         key = 1024 if n <= 1024 else _p4(n)
-        if 2 * ub + 1 >= n:
+        if _full_matrix(n, ub):
             full_groups.setdefault(key, []).append((i, a, b, ub))
         else:
             band_groups.setdefault(key, []).append((i, a, b, ub))
@@ -427,8 +437,8 @@ def eval_nw(problems: List[Tuple[bytes, bytes]]):
     of the alignment backwards, stride = ops.shape[1]), their counts
     (int64), and which problems were evaluated (an oversized one is
     left to the host DP).  ``epm_fill_endpoints`` decodes the ops into
-    the host ``nw_align_run``'s alignment.  None when the device is
-    wedged; a failed batch raises."""
+    the host ``nw_align_run``'s alignment.  A failed or timed-out
+    batch raises."""
     return device_call(_eval_nw_device, problems, _device(),
                        what="endpoint NW device batch")
 
@@ -474,7 +484,7 @@ def eval_gap(problems: List[Tuple[bytes, bytes]]):
     (int64), and which problems were evaluated (an oversized one is
     left to the host DP).  The caller installs them in the window-keyed
     lookaside (``ri_lookaside_set``) that the native cascade decodes.
-    None when the device is wedged; a failed batch raises."""
+    A failed or timed-out batch raises."""
     return device_call(_eval_gap_device, problems, _device(),
                        what="gap-align device batch")
 
@@ -515,8 +525,8 @@ def eval_rb(problems: List[Tuple[bytes, bytes]]):
     with the per-row minima and FIRST minimal positions of each
     problem's (len(pattern)+1)-row edit DP (rows past it unspecified),
     and which problems were evaluated (a text window wider than
-    MAX_WIDTH is left to the host DP).  None when the device is wedged;
-    a failed batch raises."""
+    MAX_WIDTH is left to the host DP).  A failed or timed-out batch
+    raises."""
     return device_call(_eval_rb_device, problems, _device(),
                        what="refine-borders device batch")
 
@@ -562,8 +572,7 @@ def eval_edit_batch(pairs: List[Tuple[bytes, bytes]]):
     ``factorize.alignments.edit_distance``) for the predicted-introns
     donor/acceptor stats (main-intron-agreement.c:804-904): two
     independent <= 15 nt window distances per (intron, supporting EST)
-    pair.  Returns int64 distances, or None when the device is wedged
-    (the caller computes each pair on the host); a failed batch
+    pair.  Returns int64 distances; a failed or timed-out batch
     raises."""
     return device_call(_eval_edit_batch_device, pairs, _device(),
                        what="edit-distance device batch")
@@ -615,8 +624,7 @@ def pwm_scores_batched(rows: np.ndarray, wpwm: np.ndarray, den: float):
     """Bounded entry point: MatInspector scores of (B, L) int8 window
     codes against one cv-weighted (4, L) float32 matrix (the BPS
     sweep of ``pintron_tpu_torch.factorize.classify``).  Returns (B,)
-    float32 scores, or None when the device is wedged; a failed batch
-    raises."""
+    float32 scores; a failed or timed-out batch raises."""
     return device_call(_pwm_scores_device, rows, wpwm, den, _device(),
                        what="stage-4 PWM device batch")
 

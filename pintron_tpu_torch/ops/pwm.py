@@ -11,7 +11,7 @@ encoding with the cv-weighted matrix at ``Precision.HIGHEST``; here the
 numerator is a gather and an add per column, in float32, in column
 order 0..L-1, with no matrix product: a TF32 product would break the
 bound the exact finish relies on (the f32 score within 1e-5 of the
-maximum, ``pintron_tpu/factorize/classify.py``).  A code outside 0..3
+maximum, ``pintron_tpu_torch/factorize/classify.py``).  A code outside 0..3
 adds nothing, as its all-zero one-hot row does in the JAX op.
 
   * ``pwm_scores`` is the plain PyTorch version;
@@ -20,21 +20,16 @@ adds nothing, as its all-zero one-hot row does in the JAX op.
     adds in the same order, so the two are bit-equal.
 
 The host helpers (``pwm_tables``, ``encode_windows``, ``_BASE``) are
-those of the JAX module, which cannot be imported here.
+copies of the JAX module's.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from pintron_tpu.factorize.pwm_data import CV, MAXV, PWM
+from pintron_tpu_torch.factorize.pwm_data import CV, MAXV, PWM
 from pintron_tpu_torch.ops.kband import _count, _cuda_launch_context
-
-# widest window the kernel takes (its shared weight table, csrc/pwm.cu)
-MAX_L = 256
 
 _BASE = np.full(256, -1, dtype=np.int32)
 for _i, _chars in enumerate(["Aa", "Cc", "Gg", "Tt"]):
@@ -109,8 +104,6 @@ def pwm_scores_cuda(base_idx: torch.Tensor, weighted_pwm: torch.Tensor,
     if dev.type == "cpu":
         return pwm_scores(base_idx, weighted_pwm, denominator)
     B, L = base_idx.shape
-    if L > MAX_L:
-        raise ValueError(f"pwm_kernel: windows of {L} > {MAX_L} bases")
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return out
@@ -118,7 +111,7 @@ def pwm_scores_cuda(base_idx: torch.Tensor, weighted_pwm: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.pintron_pwm(base_idx.data_ptr(), L,
                               weighted_pwm.data_ptr(),
-                              ctypes.c_float(denominator), out.data_ptr(), B,
+                              denominator, out.data_ptr(), B,
                               stream)
     if err:
         raise RuntimeError(f"pwm_kernel launch failed: cudaError {err}")

@@ -1,24 +1,25 @@
-"""Pipeline CLI of the port (``python -m pintron_tpu_torch.pipeline``).
+"""Pipeline orchestrator + CLI of the port
+(`python -m pintron_tpu_torch.pipeline`).
 
-The counterpart of ``pintron_tpu.pipeline``, with the same flags plus
-``--device``.  With a device:
+Rebuild of the reference `pintron` driver (dist-scripts/pintron.py:764-1021):
+runs the eight pipeline steps over a working directory, producing the
+full-output JSON and GTF from `genomic.txt` + `ests.txt`.  Same flags,
+same intermediate-file ABI, same cleanup list as
+``pintron_tpu.pipeline``, plus ``--device``:
 
-  * STEP 2 (est-fact) runs the port's ``run_est_fact`` there, in this
-    process: a CUDA context must never be created in a forked child, so
-    the device stages are not run under the fork watchdog;
-  * STEP 3 (exon agreement) runs ``pintron_tpu``'s host stage in a
-    forked child under its resource guard (``--set-max-exon-agreement-
-    time``), as ``pintron_tpu.pipeline`` runs it;
-  * STEP 4 (intron agreement) runs the port's ``run_intron_agreement``
-    on the device, in this process;
-  * STEPs 5-8 and the cleanup are ``pintron_tpu.pipeline.
-    pintron_pipeline`` itself, entered with resume on so that it finds
-    the outputs of STEPs 2-4 and runs the rest on its host paths.
+  * ``cuda`` (the default) or ``cuda:N``: the batches of STEP 2
+    (est-fact) and STEP 4 (intron agreement) run on the card, in this
+    process (a CUDA context must never be created in a forked child, so
+    these two stages are not run under the fork watchdog; the per-EST
+    timeout ladder bounds STEP 2 instead).  Raises without a card;
+  * ``cpu``: the same with the plain PyTorch ops on the CPU;
+  * ``host``: the native host path with no device batch, every guarded
+    stage in its forked child, as the JAX package runs by default.
 
-Without a device the whole run is ``pintron_tpu``'s host path.  With
-``PINTRON_TORCH_SERVICE`` set (the batch driver sets it), the device
-batches of STEPs 2 and 4 go to the device service instead, and this
-process never touches CUDA.
+STEP 3 and STEPs 5-8 are host stages and run the same way in every
+mode.  With ``PINTRON_TORCH_SERVICE`` set (the batch driver sets it),
+the device batches of STEPs 2 and 4 go to the device service instead,
+and this process never touches CUDA.
 
 ``PINTRON_TORCH_PROFILE=<dir>`` writes a ``torch.profiler`` trace of
 the whole pipeline there; the device batches carry the spans
@@ -33,22 +34,12 @@ logs ``intron-agreement device flow: {...}``.
 from __future__ import annotations
 
 import argparse
-import inspect
+import glob
 import logging
 import os
 import shutil
 import sys
 import time
-
-from pintron_tpu import pipeline as _host
-
-STEP2_ARTIFACTS = ("raw-multifasta-out.txt", "processed-ests.txt")
-STEP3_ARTIFACTS = ("out-agree.txt",)
-STEP4_ARTIFACTS = ("out-after-intron-agree.txt", "predicted-introns.txt")
-# what pintron_tpu's STEPs 5-7 leave behind; a run without --resume
-# removes them, so that the host orchestrator skips STEPs 2-4 alone
-LATER_ARTIFACTS = ("build-ests.txt", "genomic-exonforCCDS.txt",
-                   "isoforms.txt", "CCDS_transcripts.txt", "VariantGTF.txt")
 
 
 def _start_profiler():
@@ -69,123 +60,255 @@ def _start_profiler():
     return prof, prof_dir
 
 
-def _run_guarded(fn, minutes: int, artifacts) -> None:
-    """``pintron_tpu.pipeline``'s resource guard for a host stage
-    (reference pintron.py:878-906 ``ulimit -t``): run ``fn`` in a forked
-    child with RLIMIT_CPU and a wall-clock watchdog, and remove the
-    stage's ``artifacts`` when it fails or times out, so that a later
-    --resume cannot pick up a truncated file.  ``minutes <= 0`` runs it
-    inline.  The child touches no CUDA."""
-    if minutes <= 0:
-        fn()
-        return
-    import multiprocessing
-
-    def child():
-        import resource
-        cpu = minutes * 60
-        try:
-            resource.setrlimit(resource.RLIMIT_CPU, (cpu, cpu + 10))
-        except (ValueError, OSError):
-            pass
-        fn()
-
-    proc = multiprocessing.get_context("fork").Process(target=child)
-    proc.start()
-    proc.join(timeout=minutes * 60 + 30)
-    timed_out = proc.is_alive()
-    if timed_out:
-        proc.terminate()
-        proc.join(timeout=10)
-    if timed_out or proc.exitcode != 0:
-        for path in artifacts:
-            try:
-                os.remove(path)
-            except OSError:
-                pass
-        raise RuntimeError(
-            "stage exceeded its resource guard or failed "
-            + ("(wall-clock timeout)" if timed_out
-               else f"(exit {proc.exitcode})"))
-
-
-def pintron_pipeline(workdir: str = ".", device=None, **kwargs) -> None:
-    """Run the eight pipeline steps over ``workdir``.  ``device`` is the
-    torch device of the batches of STEPs 2 and 4 (``None``: host only);
-    the other arguments are ``pintron_tpu.pipeline.pintron_pipeline``'s."""
-    for var, use in (("PINTRON_DEVICE", "--device"),
+def pintron_pipeline(workdir: str = ".",
+                     genome_filename: str = "genomic.txt",
+                     est_filename: str = "ests.txt",
+                     output_filename: str = "pintron-full-output.json",
+                     gtf_filename: str = "pintron-all-isoforms.gtf",
+                     gene: str = "unknown",
+                     organism: str = "unknown",
+                     only_cds_annot: bool = False,
+                     extended_gtf_filename: str = "",
+                     pipeline_logfile: str = "",
+                     pas_tolerance: int = 30,
+                     keep_intermediate: bool = False,
+                     resume: bool = False,
+                     max_factorization_time: int = 60,
+                     max_factorization_memory: int = 3000,
+                     max_exon_agreement_time: int = 15,
+                     max_intron_agreement_time: int = 30,
+                     config=None,
+                     log=logging.getLogger("pintron"),
+                     device="cuda") -> None:
+    """Run the eight pipeline steps over ``workdir``.  ``device`` is
+    ``"cuda"`` (the default), ``"cuda:N"``, ``"cpu"`` or ``"host"`` (see
+    the module docstring); the device is checked before any step runs,
+    so ``"cuda"`` without a card raises at once."""
+    for var, use in (("PINTRON_DEVICE", "device"),
                      ("PINTRON_JAX_PROFILE", "PINTRON_TORCH_PROFILE")):
         if os.environ.get(var):
-            raise RuntimeError(f"{var} is set: pintron_tpu would import "
-                               f"JAX.  Unset it; the port uses {use}")
-    call = inspect.signature(_host.pintron_pipeline).bind(workdir, **kwargs)
-    call.apply_defaults()
-    a = call.arguments
-    if device is None:
-        _host.pintron_pipeline(**a)
-        return
-    from pintron_tpu.stages.min_factorization import run_min_factorization
-    from pintron_tpu_torch.stages.est_fact import run_est_fact
-    from pintron_tpu_torch.stages.intron_agreement import \
-        run_intron_agreement
+            raise RuntimeError(f"{var} is set: it is the JAX package's "
+                               f"switch.  Unset it; the port uses {use}")
+    from pintron_tpu_torch.ops import offload
+    from pintron_tpu_torch.stages import est_fact, intron_agreement
+    from pintron_tpu_torch.stages.min_factorization import \
+        run_min_factorization
+    from pintron_tpu_torch.stages.compact import run_compact_compositions
+    from pintron_tpu_torch.stages.transcripts import run_maximal_transcripts
+    from pintron_tpu_torch.stages.ccds import run_cds_annotation
+    from pintron_tpu_torch.stages.emit import compute_json, json2gtf
+
+    host = offload.is_host(device)
+    if not host:
+        device = offload.use_device(device)
 
     def wpath(name: str) -> str:
         return os.path.join(workdir, name)
 
-    def run_step(label: str, artifacts, fn) -> None:
-        """Run one step, or skip it under --resume when its artifacts
-        exist; the -l/--logfile record pintron_tpu keeps for its own
-        steps (begin, then ok or FAILED with the wall time)."""
-        if a["resume"] and all(os.path.exists(wpath(n)) for n in artifacts):
-            log.info("%s [resume] outputs found, skipping", label)
-            return
-        log.info("%s on %s...", label, device)
+    # -l/--logfile: the per-step pipeline log (reference pintron.py's
+    # exec_system_command appends each stage's label, command analogue
+    # and exit status to options.plogfile via `2>> logfile`).  The
+    # stages here run in-process, so the equivalent record is a
+    # begin/end line per step with wall time and outcome.
+    _plog_path = None
+    if pipeline_logfile:
+        _plog_path = (pipeline_logfile if os.path.isabs(pipeline_logfile)
+                      else wpath(pipeline_logfile))
 
-        def plog(msg):
-            if a["pipeline_logfile"]:
-                with open(wpath(a["pipeline_logfile"]), "a") as f:
-                    f.write(f"[{label}] {msg}\n")
+    def plog(label: str, msg: str) -> None:
+        if _plog_path is not None:
+            with open(_plog_path, "a") as f:
+                f.write(f"[{label}] {msg}\n")
 
-        plog("begin")
+    def run_step(label: str, fn) -> None:
+        plog(label, "begin")
         t = time.time()
         try:
             fn()
         except BaseException as e:
-            plog(f"FAILED after {time.time() - t:.1f}s: "
-                 f"{type(e).__name__}: {e}")
+            plog(label, f"FAILED after {time.time() - t:.1f}s: "
+                        f"{type(e).__name__}: {e}")
             raise
-        plog(f"ok ({time.time() - t:.1f}s)")
+        plog(label, f"ok ({time.time() - t:.1f}s)")
 
-    def step3():
-        with open(wpath("raw-multifasta-out.txt")) as fin, \
-                open(wpath("out-agree.txt"), "w") as fout:
-            run_min_factorization(fin, fout)
+    def run_guarded(fn, minutes: int, mem_mb: int = 0,
+                    artifacts: tuple = (), device_stage: bool = False):
+        """Resource guards (reference pintron.py:878-906 `ulimit -t/-v`):
+        run the stage in a forked child with RLIMIT_CPU / RLIMIT_AS plus
+        a parent-side wall-clock watchdog (the child forks pool workers
+        whose CPU its own rlimit cannot see), so a runaway stage aborts
+        the pipeline instead of hanging it.  On failure the stage's
+        declared output artifacts are removed so a later --resume cannot
+        pick up a truncated checkpoint.  The stages communicate through
+        files, so process isolation changes nothing on success.  Guards
+        <= 0 run the stage inline.  With a torch device the stages
+        that run device batches (device_stage=True) also run inline — a
+        CUDA context cannot be used in a forked child — relying on the
+        per-EST timeout ladder instead; all other stages keep the fork
+        watchdog and its truncated-artifact cleanup."""
+        if minutes <= 0 or (device_stage and not host):
+            fn()
+            return
+        import multiprocessing
+        import resource as _resource
 
-    log = a["log"]
+        def child():
+            import resource
+            cpu = minutes * 60
+            try:
+                resource.setrlimit(resource.RLIMIT_CPU, (cpu, cpu + 10))
+                if mem_mb > 0:
+                    # cap GROWTH by mem_mb on top of the mappings already
+                    # inherited from the parent (a parent with torch loaded
+                    # maps gigabytes of virtual space the reference's fresh
+                    # C process never had)
+                    cur = 0
+                    page = _resource.getpagesize()
+                    try:
+                        with open("/proc/self/statm") as f:
+                            cur = int(f.read().split()[0]) * page
+                    except (OSError, ValueError, IndexError):
+                        pass
+                    mem = cur + mem_mb * 1024 * 1024
+                    resource.setrlimit(resource.RLIMIT_AS, (mem, mem))
+            except (ValueError, OSError):
+                pass
+            fn()
+
+        ctx = multiprocessing.get_context("fork")
+        proc = ctx.Process(target=child)
+        proc.start()
+        proc.join(timeout=minutes * 60 + 30)
+        timed_out = proc.is_alive()
+        if timed_out:
+            proc.terminate()
+            proc.join(timeout=10)
+        if timed_out or proc.exitcode != 0:
+            for name in artifacts:
+                try:
+                    os.remove(wpath(name))
+                except OSError:
+                    pass
+            raise RuntimeError(
+                "stage exceeded its resource guard or failed "
+                + ("(wall-clock timeout)" if timed_out
+                   else f"(exit {proc.exitcode})"))
+
+    def stage_done(*artifacts: str) -> bool:
+        """Idempotent restart: the inter-stage files double as
+        checkpoints (SURVEY §5 / reference DESIGN.md) -- with --resume a
+        stage whose outputs already exist is skipped."""
+        return resume and all(os.path.exists(wpath(a)) for a in artifacts)
+
+    t0 = time.time()
+    # Device-profiling hook: PINTRON_TORCH_PROFILE=<dir> captures a
+    # torch.profiler trace of the whole pipeline; the device batches
+    # carry record_function spans (ops/offload.py) so the kernel
+    # dispatches show up named.
     prof, prof_dir = _start_profiler()
-    # STEP 1: input checks; the stage ABI uses the well-known names
-    for f, name in ((a["genome_filename"], "genomic.txt"),
-                    (a["est_filename"], "ests.txt")):
+    # STEP 1: input checks (pintron.py:824-873)
+    log.info("STEP  1:  Checking executables and input files...")
+    for f in (genome_filename, est_filename):
         if not os.access(wpath(f), os.R_OK):
             raise FileNotFoundError(wpath(f))
-        if f != name:
-            shutil.copyfile(wpath(f), wpath(name))
-    if not a["resume"]:
-        for name in LATER_ARTIFACTS:
-            if os.path.exists(wpath(name)):
-                os.remove(wpath(name))
 
-    run_step("cmd-2-est-fact", STEP2_ARTIFACTS,
-             lambda: run_est_fact(workdir, config=a["config"],
-                                  device=device))
-    run_step("cmd-3-min-factorization", STEP3_ARTIFACTS,
-             lambda: _run_guarded(step3, a["max_exon_agreement_time"],
-                                  [wpath(n) for n in STEP3_ARTIFACTS]))
-    run_step("cmd-4-intron-agreement", STEP4_ARTIFACTS,
-             lambda: run_intron_agreement(workdir, device=device))
+    # the stage ABI uses the well-known names; stage inputs may be aliased
+    if genome_filename != "genomic.txt":
+        shutil.copyfile(wpath(genome_filename), wpath("genomic.txt"))
+    if est_filename != "ests.txt":
+        shutil.copyfile(wpath(est_filename), wpath("ests.txt"))
 
-    log.info("STEPs 5-8 on pintron_tpu's host paths")
-    _host.pintron_pipeline(**dict(a, resume=True))
+    # STEP 2: spliced alignment (est-fact)
+    if stage_done("raw-multifasta-out.txt", "processed-ests.txt"):
+        log.info("STEP  2:  [resume] spliced alignments found, skipping")
+    else:
+        log.info("STEP  2:  Computing the spliced alignments...")
+        run_step("cmd-2-est-fact", lambda: run_guarded(
+            lambda: est_fact.run_est_fact(workdir, config=config,
+                                          device=device),
+            max_factorization_time, max_factorization_memory,
+            artifacts=("raw-multifasta-out.txt",
+                       "processed-ests.txt", "megs.txt",
+                       "processed-megs.txt", "meg-edges.txt",
+                       "processed-megs-info.txt"),
+            device_stage=True))
+
+    # STEP 3: minimum-factorization agreement
+    if stage_done("out-agree.txt"):
+        log.info("STEP  3:  [resume] agreement found, skipping")
+    else:
+        log.info("STEP  3:  Computing the agreement of the alignments...")
+
+        def _step3():
+            with open(wpath("raw-multifasta-out.txt")) as fin, \
+                    open(wpath("out-agree.txt"), "w") as fout:
+                run_min_factorization(fin, fout)
+
+        run_step("cmd-3-min-factorization", lambda: run_guarded(
+            _step3, max_exon_agreement_time,
+            artifacts=("out-agree.txt",)))
+
+    # STEP 4: intron agreement + classification
+    if stage_done("out-after-intron-agree.txt", "predicted-introns.txt"):
+        log.info("STEP  4:  [resume] intron agreement found, skipping")
+    else:
+        log.info("STEP  4:  Computing the intron agreement...")
+        run_step("cmd-4-intron-agreement", lambda: run_guarded(
+            lambda: intron_agreement.run_intron_agreement(workdir,
+                                                          device=device),
+            max_intron_agreement_time,
+            artifacts=("out-after-intron-agree.txt",
+                       "predicted-introns.txt"),
+            device_stage=True))
+
+    # STEP 5: composition compaction
+    if stage_done("build-ests.txt", "genomic-exonforCCDS.txt"):
+        log.info("STEP  5:  [resume] compacted compositions found, skipping")
+    else:
+        log.info("STEP  5:  Computing the final transcript alignments...")
+        def _step5():
+            with open(wpath("out-after-intron-agree.txt")) as fin, \
+                    open(wpath("build-ests.txt"), "w") as fout:
+                run_compact_compositions(fin, fout, wpath("genomic.txt"),
+                                         wpath("genomic-exonforCCDS.txt"))
+
+        run_step("cmd-5-compact-compositions", _step5)
+
+    # STEP 6: maximal transcripts
+    if stage_done("isoforms.txt"):
+        log.info("STEP  6:  [resume] isoforms found, skipping")
+    else:
+        log.info("STEP  6:  Computing the final full-length isoforms...")
+        run_step("cmd-6a-maximal-transcripts",
+                 lambda: run_maximal_transcripts(workdir))
+        shutil.copyfile(wpath("TRANSCRIPTS1_1.txt"), wpath("isoforms.txt"))
+
+    # STEP 7: CDS annotation
+    if stage_done("CCDS_transcripts.txt", "VariantGTF.txt"):
+        log.info("STEP  7:  [resume] CDS annotation found, skipping")
+    else:
+        log.info("STEP  7:  Annotating CDS...")
+        run_step("cmd-7-cds-annotation",
+                 lambda: run_cds_annotation(workdir, gene=gene,
+                                            organism=organism))
+
+    # STEP 8: JSON + GTF emission
+    log.info("STEP  8:  Saving outputs...")
+    run_step("cmd-8-compute-json",
+             lambda: compute_json(workdir, wpath(output_filename),
+                                  pas_tolerance=pas_tolerance))
+    if gtf_filename:
+        json2gtf(wpath(output_filename), wpath(gtf_filename), gene,
+                 not only_cds_annot)
+    if extended_gtf_filename:
+        # --extended-gtf: an always-complete GTF variant (every isoform
+        # with full exon/UTR/codon rows) alongside the main one — under
+        # --strict-GTF-compliance the main GTF is restricted to
+        # CDS-annotated isoforms (reference pintron.py:232-273), and
+        # this file preserves the unrestricted view
+        json2gtf(wpath(output_filename), wpath(extended_gtf_filename),
+                 gene, True)
+
     if prof is not None:
         prof.stop()
         os.makedirs(prof_dir, exist_ok=True)
@@ -193,15 +316,39 @@ def pintron_pipeline(workdir: str = ".", device=None, **kwargs) -> None:
         prof.export_chrome_trace(trace)
         log.info("torch profiler trace written to %s", trace)
 
+    # STEP 10: cleanup (pintron.py:974-983)
+    log.info("STEP 10:  Finalizing...")
+    if not keep_intermediate:
+        tempfiles = [
+            "TEMP_COMPOSITION_TRANS1_1.txt", "TEMP_COMPOSITION_TRANS1_2.txt",
+            "TEMP_COMPOSITION_TRANS1_3.txt", "TEMP_COMPOSITION_TRANS1_4.txt",
+            "TRANSCRIPTS1_1.txt", "TRANSCRIPTS1_2.txt", "TRANSCRIPTS1_3.txt",
+            "TRANSCRIPTS1_4.txt", "VariantGTF.txt", "build-ests.txt",
+            "CCDS_transcripts.txt", "config-dump.ini",
+            "genomic-exonforCCDS.txt", "isoforms.txt", "meg-edges.txt",
+            "megs.txt", "out-after-intron-agree.txt", "out-agree.txt",
+            "out-fatt.txt", "predicted-introns.txt", "processed-ests.txt",
+            "processed-megs-info.txt", "processed-megs.txt",
+            "raw-multifasta-out.txt", "time-limits", "info-pid-*.log",
+        ]
+        for name in tempfiles:
+            for p in glob.glob(wpath(name)):
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass
+    log.info("Pipeline completed in %.1fs", time.time() - t0)
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="pintron-tpu-torch",
         description="PIntron on PyTorch/CUDA: gene-structure prediction "
                     "by spliced alignment of ESTs/mRNAs")
-    p.add_argument("--device", default=None,
-                   help="torch device of the batches of STEPs 2 and 4 "
-                        "(cuda, cuda:N or cpu); default: host only")
+    p.add_argument("--device", default="cuda",
+                   help="where the batches of STEPs 2 and 4 run: cuda "
+                        "(default), cuda:N, cpu (the plain PyTorch ops) or "
+                        "host (the native host path, no device batch)")
     p.add_argument("-g", "--genomic", dest="genome_filename",
                    default="genomic.txt")
     p.add_argument("-s", "--EST", dest="est_filename", default="ests.txt")
@@ -257,6 +404,8 @@ def main(argv=None) -> int:
     root.addHandler(console)
 
     if args.bindir:
+        # every stage is built into pintron_tpu_torch; there are no
+        # external stage executables for --bin-dir to locate
         logging.getLogger("pintron").warning(
             "--bin-dir=%s ignored: all pipeline stages are built in",
             args.bindir)

@@ -10,7 +10,7 @@ import threading
 import pytest
 import torch
 
-from pintron_tpu.native import get_lib
+from pintron_tpu_torch.native import get_lib
 from pintron_tpu_torch.ops import offload
 from pintron_tpu_torch.stages import est_fact
 
@@ -40,7 +40,6 @@ def device_flow(monkeypatch):
         pytest.skip("native collect entry unavailable")
     monkeypatch.delenv("PINTRON_DEVICE", raising=False)
     monkeypatch.setenv("PINTRON_FRESH_MEMO", "1")
-    monkeypatch.setattr(offload, "_WEDGED", False)
     offload.reset_stats()
     return offload
 
@@ -79,7 +78,7 @@ def test_stage2_cpu_device_byte_identical(case, golden, tmp_path,
     stats = dict(device_flow.STATS)
     assert min(stats[k] for k in FAMILY_COUNTS) > 0, stats
     assert stats["device_runs"] == 1
-    assert not device_flow.device_wedged()
+    assert stats["device_timeouts"] == 0
     _assert_stage2_equal(gold, work)
     assert {k: stats[k] for k in FAMILY_COUNTS} == \
         _jax_forced_counts(gold, tmp_path, monkeypatch)
@@ -87,19 +86,21 @@ def test_stage2_cpu_device_byte_identical(case, golden, tmp_path,
 
 def test_wedged_device_degrades_byte_identical(golden, tmp_path,
                                                device_flow, monkeypatch):
-    """A hung K-band batch trips the watchdog; the memo pre-fill is
-    skipped and the native cascade recomputes on host, byte-identically."""
-    gold, work = _workdir(golden, "test-788", tmp_path)
+    """A hung K-band batch trips the watchdog and stops STEP 2: the
+    native cascade never recomputes its checks on the host."""
+    _gold, work = _workdir(golden, "test-788", tmp_path)
     release = threading.Event()
     monkeypatch.setattr(device_flow, "_eval_kband_device",
                         lambda *_a: release.wait(30))
     monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "1")
     try:
-        est_fact.run_est_fact(str(work), device="cpu")
+        with pytest.raises(device_flow.DeviceTimeout,
+                           match="K-band device batch"):
+            est_fact.run_est_fact(str(work), device="cpu")
     finally:
         release.set()
-    assert device_flow.STATS["device_timeouts"] >= 1
-    _assert_stage2_equal(gold, work)
+    assert device_flow.STATS["device_timeouts"] == 1
+    assert not (work / "raw-multifasta-out.txt").exists()
 
 
 # test-788 evaluates its one chunk inline, TP53 its two chunks on the
@@ -117,7 +118,7 @@ def test_failing_batch_raises_out_of_the_stage(case, golden, tmp_path,
     monkeypatch.setattr(device_flow, "_eval_kband_device", boom)
     with pytest.raises(RuntimeError, match="kernel fault"):
         est_fact.run_est_fact(str(work), device="cpu")
-    assert not device_flow.device_wedged()
+    assert device_flow.STATS["device_timeouts"] == 0
     assert not (work / "raw-multifasta-out.txt").exists()
 
 
@@ -137,27 +138,26 @@ def test_failing_family_batch_raises_out_of_the_stage(entry, golden,
     monkeypatch.setattr(device_flow, entry, boom)
     with pytest.raises(RuntimeError, match="kernel fault"):
         est_fact.run_est_fact(str(work), device="cpu")
-    assert not device_flow.device_wedged()
+    assert device_flow.STATS["device_timeouts"] == 0
     assert not (work / "raw-multifasta-out.txt").exists()
 
 
 @pytest.mark.parametrize("entry", FAMILIES)
 def test_hung_family_batch_degrades_byte_identical(entry, golden, tmp_path,
                                                    device_flow, monkeypatch):
-    """A hung NW, gap or refine-borders batch trips the watchdog; its
-    fill is skipped, later batches short-circuit, and the native cascade
-    computes the rest on the host, byte-identically."""
-    gold, work = _workdir(golden, "test-788", tmp_path)
+    """A hung NW, gap or refine-borders batch trips the watchdog and
+    stops STEP 2: the host DP never computes the rest."""
+    _gold, work = _workdir(golden, "test-788", tmp_path)
     release = threading.Event()
     monkeypatch.setattr(device_flow, entry, lambda *_a: release.wait(30))
     monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "1")
     try:
-        est_fact.run_est_fact(str(work), device="cpu")
+        with pytest.raises(device_flow.DeviceTimeout):
+            est_fact.run_est_fact(str(work), device="cpu")
     finally:
         release.set()
     assert device_flow.STATS["device_timeouts"] == 1
-    assert device_flow.device_wedged()
-    _assert_stage2_equal(gold, work)
+    assert not (work / "raw-multifasta-out.txt").exists()
 
 
 def test_missing_native_entry_raises(monkeypatch):
@@ -170,11 +170,13 @@ def test_missing_native_entry_raises(monkeypatch):
 
 
 def test_host_path_when_no_device(golden, tmp_path, monkeypatch):
+    """device="host": the port's copy of the native host path (the fork
+    pool), no device batch."""
     monkeypatch.delenv("PINTRON_DEVICE", raising=False)
     monkeypatch.setenv("PINTRON_EST_WORKERS", "2")
     gold, work = _workdir(golden, "test-AMBN", tmp_path)
     offload.reset_stats()
-    est_fact.run_est_fact(str(work))
+    est_fact.run_est_fact(str(work), device="host")
     assert offload.STATS["device_problems"] == 0
     _assert_stage2_equal(gold, work)
 

@@ -62,7 +62,6 @@ def offload_problems():
 @pytest.fixture
 def cpu_offload(monkeypatch):
     monkeypatch.setattr(offload, "_DEVICE", torch.device("cpu"))
-    monkeypatch.setattr(offload, "_WEDGED", False)
     offload.reset_stats()
     return offload
 
@@ -83,6 +82,40 @@ def test_eval_kband_matches_jax_and_native(cpu_offload):
     assert st["batches"] >= 2           # one full + one band group at least
 
 
+def test_budget_beyond_the_band_kernel_goes_to_the_full_matrix(
+        cpu_offload, monkeypatch):
+    """A budget over kband.KMAX never reaches the band kernel (which
+    raises for it): the full-matrix kernel gives the same verdict as
+    the native ep_kband."""
+    lib = get_lib()
+    if lib is None:
+        pytest.skip("native library unavailable")
+    rng = np.random.default_rng(5)
+    problems = []
+    for n, edits, ub in ((600, 100, 260), (800, -1, 260),
+                         (600, 20, 30), (700, 150, 257)):
+        g = "".join(rng.choice(ALPHA, n)).encode()
+        el = list(g.decode())
+        for _ in range(edits):
+            el[int(rng.integers(0, n))] = str(rng.choice(ALPHA))
+        if edits < 0:   # an unrelated sequence: distance far over ub
+            el = list(rng.choice(ALPHA, n))
+        problems.append((g, "".join(el).encode()[:n - 5], ub))
+    widths = []
+    real = cpu_offload.banded_edit_distance_cuda
+
+    def spy(*a, k_max, **k):
+        widths.append(k_max)
+        return real(*a, k_max=k_max, **k)
+
+    monkeypatch.setattr(cpu_offload, "banded_edit_distance_cuda", spy)
+    got = cpu_offload.eval_kband(problems)
+    assert widths == [32]
+    for i, (g, e, ub) in enumerate(problems):
+        assert int(got[i]) == _host_ep_kband_ok(lib, g, e, ub), i
+    assert got.tolist()[:2] == [1, 0]
+
+
 def test_eval_kband_needs_a_device(monkeypatch):
     monkeypatch.setattr(offload, "_DEVICE", None)
     with pytest.raises(RuntimeError, match="set_device"):
@@ -92,8 +125,8 @@ def test_eval_kband_needs_a_device(monkeypatch):
 @pytest.mark.parametrize("timeout_s", ["600", "0"])
 def test_failing_batch_raises(cpu_offload, monkeypatch, timeout_s):
     """A batch that fails (a kernel that does not build or launch) is
-    raised, under the watchdog thread or inline, and latches nothing:
-    the work is never moved to the host DP for it."""
+    raised, under the watchdog thread or inline, and the next batch
+    runs: the work is never moved to the host DP for it."""
     def boom(*_a):
         raise RuntimeError("kernel fault")
 
@@ -101,33 +134,63 @@ def test_failing_batch_raises(cpu_offload, monkeypatch, timeout_s):
     monkeypatch.setattr(cpu_offload, "_eval_kband_device", boom)
     with pytest.raises(RuntimeError, match="kernel fault"):
         cpu_offload.eval_kband([(b"ACGT", b"ACGA", 1)])
-    assert not cpu_offload.device_wedged()
+    assert cpu_offload.STATS["device_timeouts"] == 0
     monkeypatch.setattr(cpu_offload, "_eval_kband_device",
                         lambda *_a: np.ones(1, dtype=np.int64))
     assert cpu_offload.eval_kband([(b"ACGT", b"ACGA", 1)]).tolist() == [1]
 
 
 def test_hung_batch_times_out(cpu_offload, monkeypatch):
+    """A batch that hangs past the dispatch timeout raises; no host
+    path stands in for it."""
     release = threading.Event()
     monkeypatch.setattr(cpu_offload, "_eval_kband_device",
                         lambda *_a: release.wait(30))
     monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "0.2")
     try:
-        assert cpu_offload.eval_kband([(b"ACGT", b"ACGA", 1)]) is None
+        with pytest.raises(cpu_offload.DeviceTimeout,
+                           match="K-band device batch"):
+            cpu_offload.eval_kband([(b"ACGT", b"ACGA", 1)])
     finally:
         release.set()
     assert cpu_offload.STATS["device_timeouts"] == 1
-    assert cpu_offload.device_wedged()
 
 
 def test_wedged_device_short_circuits(cpu_offload, monkeypatch):
-    """After a timeout every later batch reports None without running."""
-    monkeypatch.setattr(cpu_offload, "_WEDGED", True)
+    """Nothing latches after a timeout: the next batch runs on the
+    device again, and every entry raises on its own timeout."""
+    release = threading.Event()
+    monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "0.2")
+    monkeypatch.setattr(cpu_offload, "_eval_kband_device",
+                        lambda *_a: release.wait(30))
+    monkeypatch.setattr(cpu_offload, "_eval_nw_device",
+                        lambda *_a: release.wait(30))
+    try:
+        with pytest.raises(cpu_offload.DeviceTimeout):
+            cpu_offload.eval_kband([(b"ACGT", b"ACGA", 1)])
+        with pytest.raises(cpu_offload.DeviceTimeout,
+                           match="endpoint NW device batch"):
+            cpu_offload.eval_nw([(b"ACGT", b"ACGA")])
+    finally:
+        release.set()
     ran = []
     monkeypatch.setattr(cpu_offload, "_eval_kband_device",
-                        lambda *_a: ran.append(1))
-    assert cpu_offload.eval_kband([(b"ACGT", b"ACGA", 1)]) is None
-    assert not ran
+                        lambda *_a: ran.append(1) or np.ones(1, np.int64))
+    assert cpu_offload.eval_kband([(b"ACGT", b"ACGA", 1)]).tolist() == [1]
+    assert ran == [1]
+    assert cpu_offload.STATS["device_timeouts"] == 2
+
+
+def test_device_call_raises_past_its_timeout(monkeypatch):
+    """device_call itself: a stub that sleeps past a tiny timeout
+    raises DeviceTimeout; one that returns in time gives its result."""
+    import time
+    monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "0.05")
+    offload.reset_stats()
+    with pytest.raises(offload.DeviceTimeout, match="stub batch"):
+        offload.device_call(time.sleep, 0.5, what="stub batch")
+    assert offload.STATS["device_timeouts"] == 1
+    assert offload.device_call(lambda x: x + 1, 41, what="stub") == 42
 
 
 def test_encode_matches_reference():

@@ -9,17 +9,19 @@ from pintron_tpu_torch import pipeline
 
 
 def test_pipeline_cpu_device_byte_identical(golden, tmp_path, monkeypatch):
-    """STEPs 2 and 4 on the device, STEP 3 on the host in the port, STEPs
-    5-8 through pintron_tpu's orchestrator; stale outputs of an earlier
-    run's later steps are not picked up."""
+    """STEPs 2 and 4 on the device, STEP 3 and STEPs 5-8 on the host,
+    all in the port; stale outputs of an earlier run's later steps are
+    not picked up."""
     monkeypatch.delenv("PINTRON_DEVICE", raising=False)
     gold = golden("test-AMBN")
     work = tmp_path / "ambn"
     work.mkdir()
     for name in ("genomic.txt", "ests.txt"):
         shutil.copy(gold / name, work / name)
-    for name in (pipeline.STEP3_ARTIFACTS + pipeline.STEP4_ARTIFACTS
-                 + pipeline.LATER_ARTIFACTS):
+    for name in ("out-agree.txt", "out-after-intron-agree.txt",
+                 "predicted-introns.txt", "build-ests.txt",
+                 "genomic-exonforCCDS.txt", "isoforms.txt",
+                 "CCDS_transcripts.txt", "VariantGTF.txt"):
         (work / name).write_text("stale\n")
     rc = pipeline.main(["--device", "cpu", "--workdir", str(work),
                         "-g", "genomic.txt", "-s", "ests.txt",

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from pintron_tpu.native import get_lib
+from pintron_tpu_torch.native import get_lib
 from pintron_tpu_torch.ops import offload
 from pintron_tpu_torch.ops.pwm import pwm_tables
 from pintron_tpu_torch.stages import est_fact
@@ -75,7 +75,6 @@ def service():
 def local(monkeypatch):
     monkeypatch.delenv(offload.SERVICE_ENV, raising=False)
     monkeypatch.setattr(offload, "_DEVICE", torch.device("cpu"))
-    monkeypatch.setattr(offload, "_WEDGED", False)
     offload.reset_stats()
     return offload
 
@@ -209,7 +208,7 @@ def test_failed_service_batch_raises_and_latches_nothing(service, local,
     rows = np.zeros((5, 10), dtype=np.int8)
     with pytest.raises(RuntimeError, match="device service: ValueError"):
         offload.pwm_scores_batched(rows, wpwm, den)
-    assert not offload.device_wedged()
+    assert offload.STATS["device_timeouts"] == 0
 
 
 def _workdir(gold, work):

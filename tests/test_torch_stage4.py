@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from pintron_tpu.native import get_lib
 from pintron_tpu_torch import pipeline
 from pintron_tpu_torch.factorize import classify
+from pintron_tpu_torch.native import get_lib
 from pintron_tpu_torch.ops import kband, offload, pwm
 from pintron_tpu_torch.stages import intron_agreement
 
@@ -33,7 +33,6 @@ def cpu_offload(monkeypatch):
     monkeypatch.delenv("PINTRON_DEVICE", raising=False)
     monkeypatch.delenv(offload.SERVICE_ENV, raising=False)
     monkeypatch.setattr(offload, "_DEVICE", torch.device("cpu"))
-    monkeypatch.setattr(offload, "_WEDGED", False)
     offload.reset_stats()
     return offload
 
@@ -50,13 +49,14 @@ def jax_offload(monkeypatch):
 
 @pytest.fixture
 def fresh_bps():
-    """Leave the reference classifier's override table and cache as
-    found."""
+    """The port's classifier; leave its override table and cache, and
+    the JAX package's, as found."""
     import pintron_tpu.factorize.classify as ref
-    yield ref
-    ref._BPS_OVERRIDE.clear()
-    ref._BPS_OVERRIDE_GEN = None
-    ref.classify_genomic_intron_start_end.cache_clear()
+    yield classify
+    for mod in (classify, ref):
+        mod._BPS_OVERRIDE.clear()
+        mod._BPS_OVERRIDE_GEN = None
+        mod.classify_genomic_intron_start_end.cache_clear()
 
 
 def random_windows(seed, B, L):
@@ -173,17 +173,16 @@ def _stage4_workdir(golden, case, tmp_path, sub="port"):
 def test_bps_overrides_match_jax_on_ambn(golden, tmp_path, cpu_offload,
                                          jax_offload, fresh_bps,
                                          monkeypatch):
-    """The port's sweep leaves the reference's _BPS_OVERRIDE as the JAX
-    sweep does, for the registry of AMBN's STEP 4."""
-    from pintron_tpu.factorize.classify import \
-        precompute_bps_device as jax_precompute
+    """The port's sweep leaves its _BPS_OVERRIDE as the JAX sweep
+    leaves the JAX package's, for the registry of AMBN's STEP 4."""
+    import pintron_tpu.factorize.classify as ref
     if get_lib() is None:
         pytest.skip("native library unavailable")
     calls = []
 
-    def capture(gen, pairs):
+    def capture(gen, pairs, device):
         calls.append((gen, list(pairs)))
-        return classify.precompute_bps_device(gen, calls[-1][1])
+        return classify.precompute_bps_device(gen, calls[-1][1], device)
 
     monkeypatch.setattr(intron_agreement, "precompute_bps_device", capture)
     _gold, work = _stage4_workdir(golden, "test-AMBN", tmp_path)
@@ -191,9 +190,9 @@ def test_bps_overrides_match_jax_on_ambn(golden, tmp_path, cpu_offload,
     (gen, pairs), = calls
     port = dict(fresh_bps._BPS_OVERRIDE)
     assert fresh_bps._BPS_OVERRIDE_GEN is gen
-    n = jax_precompute(gen, pairs)
+    n = ref.precompute_bps_device(gen, pairs)
     assert n == cpu_offload.STATS["pwm_windows"] > 0
-    assert len(port) > 0 and port == fresh_bps._BPS_OVERRIDE
+    assert len(port) > 0 and port == ref._BPS_OVERRIDE
 
 
 @pytest.mark.parametrize("case", ["test-788", "test-AMBN", "test-CPB2",
@@ -214,9 +213,10 @@ def test_stage4_cpu_device_byte_identical(case, golden, tmp_path,
         assert (work / name).read_bytes() == (gold / name).read_bytes(), \
             f"{name} differs from golden"
     port = dict(cpu_offload.STATS)
-    assert not cpu_offload.device_wedged()
+    assert port["device_timeouts"] == 0
 
-    fresh_bps.classify_genomic_intron_start_end.cache_clear()
+    import pintron_tpu.factorize.classify as ref
+    ref.classify_genomic_intron_start_end.cache_clear()
     _gold, jwork = _stage4_workdir(golden, case, tmp_path, "jax")
     monkeypatch.setenv("PINTRON_DEVICE", "1")
     jax_stage(str(jwork))
@@ -234,10 +234,9 @@ def test_stage4_cpu_device_byte_identical(case, golden, tmp_path,
 def test_stage4_hung_sweep_unpins_the_overrides(golden, tmp_path,
                                                 cpu_offload, fresh_bps,
                                                 monkeypatch):
-    """A PWM batch cut short by the watchdog un-pins the override table;
-    the host path classifies every intron, byte-identically, and the
-    edit stats (short-circuited by the latch) are computed on the host
-    too."""
+    """A PWM batch cut short by the watchdog stops STEP 4: its override
+    table stays empty, the host path classifies nothing in its place,
+    and the edit stats never run."""
     import threading
     if get_lib() is None:
         pytest.skip("native library unavailable")
@@ -245,16 +244,17 @@ def test_stage4_hung_sweep_unpins_the_overrides(golden, tmp_path,
     monkeypatch.setattr(cpu_offload, "_pwm_scores_device",
                         lambda *_a: release.wait(30))
     monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "0.5")
-    gold, work = _stage4_workdir(golden, "test-AMBN", tmp_path)
+    _gold, work = _stage4_workdir(golden, "test-AMBN", tmp_path)
     try:
-        intron_agreement.run_intron_agreement(str(work), device="cpu")
+        with pytest.raises(cpu_offload.DeviceTimeout,
+                           match="stage-4 PWM device batch"):
+            intron_agreement.run_intron_agreement(str(work), device="cpu")
     finally:
         release.set()
-    assert cpu_offload.device_wedged()
-    assert fresh_bps._BPS_OVERRIDE_GEN is None
+    assert cpu_offload.STATS["device_timeouts"] == 1
+    assert not fresh_bps._BPS_OVERRIDE
     assert cpu_offload.STATS["edit_problems"] == 0
-    for name in STAGE4:
-        assert (work / name).read_bytes() == (gold / name).read_bytes()
+    assert not (work / "predicted-introns.txt").exists()
 
 
 @pytest.mark.parametrize("entry", ["_pwm_scores_device",
@@ -273,7 +273,7 @@ def test_stage4_failing_batch_raises(entry, golden, tmp_path, cpu_offload,
     _gold, work = _stage4_workdir(golden, "test-AMBN", tmp_path)
     with pytest.raises(RuntimeError, match="kernel fault"):
         intron_agreement.run_intron_agreement(str(work), device="cpu")
-    assert not cpu_offload.device_wedged()
+    assert cpu_offload.STATS["device_timeouts"] == 0
 
 
 def test_stage4_refuses_the_jax_device_flag(tmp_path, monkeypatch):
@@ -358,3 +358,23 @@ def test_pwm_kernel_bit_equal_to_plain_on_card(cuda_device, B, name):
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), pwm.pwm_scores(codes.cpu(), w.cpu(), den))
     assert kband.LAUNCHES["pwm"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,skew", [(8425, 12, 1), (1000, 7, 0),
+                                      (300, 13, 3), (129, 256, 0),
+                                      (64, 300, 0)])
+def test_pwm_kernel_every_load_path_on_card(cuda_device, B, L, skew):
+    """Views that start off a word boundary, widths under, over and far
+    over the unrolled BPS width (the loop's tail), bit-equal to the
+    plain version."""
+    rng = np.random.default_rng(B + L)
+    w = torch.from_numpy(rng.random((4, L)).astype(np.float32)).to(
+        cuda_device)
+    flat = torch.from_numpy(rng.integers(-1, 5, B * L + skew).astype(
+        np.int8)).to(cuda_device)
+    codes = flat[skew:].view(B, L)
+    got = pwm.pwm_scores_cuda(codes, w, 3.25)
+    want = pwm.pwm_scores(codes, w, 3.25)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
