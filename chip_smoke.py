@@ -13,13 +13,16 @@ failure (so the script exits non-zero and never prints its last line):
      (kband_kernel at every band width its warp layout instantiates),
      the K-band production shape (B, rows, W) = (32768, 256, 33), the
      12 launch shapes STEP 2 gives kband_kernel on TP53 and issue-13
-     (pintron_tpu_torch.measure_kband), the shapes the loci give the
-     NW, gap and rowmin kernels, and pwm_kernel bit for bit on seeded
-     windows (N bases, codes outside 0..3, B = 1 and B not a multiple
-     of 32, the issue-13 sweep's shape (8425, 12)); times of both (CUDA
-     events) at the shapes the main path gives them, edit_score_kernel's
-     at the STEP 4 shape (256, 16, 16), each beside its bound, and the
-     F.conv1d yardstick beside pwm_kernel;
+     (pintron_tpu_torch.measure_kband), budgets of 257 to 512 on
+     kband_kernel against the plain version and edit_score_kernel's
+     verdicts, both timed on 9 kb exons, the 21 launch shapes STEP 2
+     gives nw_kernel (pintron_tpu_torch.measure_nw), the shapes the
+     loci give the gap and rowmin kernels, and pwm_kernel bit for bit
+     on seeded windows (N bases, codes outside 0..3, B = 1 and B not a
+     multiple of 32, the issue-13 sweep's shape (8425, 12)); times of
+     both (CUDA events) at the shapes the main path gives them,
+     edit_score_kernel's at the STEP 4 shape (256, 16, 16), each beside
+     its bound, and the F.conv1d yardstick beside pwm_kernel;
   4. the main path, STEP 2 (est-fact): the port's run_est_fact on the
      TP53 and issue-13 loci with every DP family on the card,
      byte-compared with tests/golden/; the kernel launch counters are
@@ -57,9 +60,10 @@ what bounds it, and the one PyTorch call that computes the same
 function where there is one (F.conv1d for pwm_kernel; null elsewhere; for these two,
 also their times on the card alone, "device_ms" and
 "library_device_ms", as their calls' times are the host's dispatch).
-kband_kernel's times and bounds are the sums over its 12 main-path
-shapes.  The floor of the dependent chain of each row-serial DP (its
-longest problem's rows times the least latency of a row) is printed on
+kband_kernel's and nw_kernel's times and bounds are the sums over
+their 12 and 21 main-path shapes.  The floor of the dependent chain of
+each row-serial DP (its longest problem's rows times the least latency
+of a row) is printed on
 the kernel's own lines of phase 3, beside its bound, and kept out of
 the JSON line, which holds only measured numbers and the bound.  Every
 kernel must have been launched by the main path.  The last line is
@@ -80,8 +84,9 @@ import torch
 
 from pintron_tpu_torch.measure_kband import (HBM_BYTES_PER_S,
                                              INT32_OPS_PER_S,
-                                             MAIN_PATH_SHAPES, device_ms,
-                                             kband_bound, main_path_batch,
+                                             MAIN_PATH_SHAPES, _p4,
+                                             device_ms, kband_bound,
+                                             main_path_batch,
                                              max_sm_clock_hz)
 from pintron_tpu_torch.ops.align import from_numpy_batch
 
@@ -265,13 +270,12 @@ def phase_traceback_kernels(dev, gpu, clock):
             pms = cuda_ms(lambda: plain(*args, **kw), plain_reps)
             # bytes: both windows and the lengths in, the ops (one byte
             # a step, at most elen + glen), score and step count out;
-            # operations: about 10 a cell (3 matrices for gap), over
-            # the INT32 peak; chain: elen rows of glen + 1 columns, then
+            # operations: about 10 a cell of the 3 matrices, over the
+            # INT32 peak; chain: elen rows of glen + 1 columns, then
             # elen + glen traceback steps
             elen = batch[1].astype(np.int64)
             glen = batch[3].astype(np.int64)
-            cells = (elen * glen if name == "nw"
-                     else 3 * (elen + 1) * (glen + 1))
+            cells = 3 * (elen + 1) * (glen + 1)
             b_ms, by = bound(2 * int((elen + glen).sum()) + 16 * B,
                              10 * int(cells.sum()), INT32_OPS_PER_S)
             chain = max(row_floor_ms(int(e), int(g) + 1, clock)
@@ -323,14 +327,50 @@ def phase_traceback_kernels(dev, gpu, clock):
         run_rowmin(B, N, M)
     print("edge-case batches: nw, gap and rowmin kernels == plain on "
           "every problem", flush=True)
-    # the shapes the loci give the kernels: the TP53 4096 x 4096 NW
-    # bucket at the sub-batch cap, a 256 x 256 NW bucket, the (64, 256)
-    # gap bucket at its largest batch, the largest rb batch
-    run_tb("nw", 16, 4096, 4096, reps=3)
-    run_tb("nw", 729, 256, 256, reps=10, plain_reps=2)
+    # the shapes the loci give the kernels: the 21 NW launches of STEP 2
+    # on TP53 and issue-13, the (64, 256) gap bucket at its largest
+    # batch, the largest rb batch
+    errs["nw"] = max(errs["nw"], nw_main_path(dev, gpu, clock, times))
     run_tb("gap", 788, 64, 256, reps=10, plain_reps=2)
     run_rowmin(146, 64, 64, reps=10)
     return errs, times
+
+
+def nw_main_path(dev, gpu, clock, times):
+    """nw_kernel at the 21 launches STEP 2 gives it on TP53 and issue-13
+    (pintron_tpu_torch.measure_nw), each equal to the plain version on
+    every problem and timed; times["nw"] gets the sums over the 21.
+    Returns the largest difference from the plain version."""
+    from pintron_tpu_torch.measure_nw import (MAIN_PATH_NW_SHAPES,
+                                              main_path_nw_batch, nw_bound)
+    from pintron_tpu_torch.ops import align, traceback
+    total = [0.0, 0.0, 0.0, 0.0]
+    by_main, err = {}, 0
+    for i, shape in enumerate(MAIN_PATH_NW_SHAPES):
+        est, elen, gen, glen, N, M = main_path_nw_batch(shape, i)
+        args = from_numpy_batch(est, elen, gen, glen, device=dev)
+        kw = dict(max_n=N, max_m=M)
+        err = max(err, compare_all(
+            "nw", traceback.batch_nw_traceback_cuda(*args, **kw),
+            align.batch_nw_traceback(*args, **kw)))
+        ms = cuda_ms(lambda: traceback.batch_nw_traceback_cuda(*args, **kw),
+                     10)
+        pms = cuda_ms(lambda: align.batch_nw_traceback(*args, **kw), 1)
+        b_ms, by, chain = nw_bound(elen, glen, clock)
+        by_main[by] = by_main.get(by, 0.0) + b_ms
+        for j, v in enumerate((ms, pms, b_ms, chain)):
+            total[j] += v
+        print(f"nw main path {shape[0]} (B {shape[1]}, bucket ({N}, {M}), "
+              f"longest {int(elen.max())} x {int(glen.max())}): kernel "
+              f"{ms:.4f} ms, plain {pms:.3f} ms, bound {b_ms:.5f} ms "
+              f"({by}), chain floor {chain:.5f} ms  [{gpu}]", flush=True)
+    times["nw"] = (total[0], total[1], total[2],
+                   max(by_main, key=by_main.get), total[3])
+    print(f"nw: the 21 main-path launches == plain on every problem; "
+          f"kernel {total[0]:.4f} ms in all, plain {total[1]:.3f} ms, "
+          f"bound {total[2]:.5f} ms, chain floor {total[3]:.5f} ms  "
+          f"[{gpu}]", flush=True)
+    return err
 
 
 def edit_score_bound(l1, l2, clock):
@@ -351,12 +391,14 @@ def phase_kernels(dev, gpu, clock):
     errs = {"kband": 0, "edit_score": 0}
     # edge cases: small, B not a multiple of the 4 warps a block, masked
     # bytes, and every band width the warp layout instantiates (CPL 1,
-    # 2, 4, 8, 16 and 17 cells a lane: W = 5, 31, 33, 65, 129, 257, 513)
+    # 2, 4, 8, 16, 17 and 33 cells a lane: W = 5, 31, 33, 65, 129, 257,
+    # 513, 1025)
     for B, n_cols, m_cols, k_max in ((77, 96, 64, 8), (300, 1024, 256, 16),
                                      (129, 4096, 1024, 64), (33, 64, 40, 2),
                                      (65, 128, 64, 15), (31, 256, 200, 32),
                                      (17, 700, 600, 128), (9, 1400, 1100, 256),
-                                     (5, 600, 520, 256)):
+                                     (5, 600, 520, 256),
+                                     (5, 1600, 1100, 512)):
         batch = random_kband_batch(rng, B, n_cols, m_cols, k_max,
                                    masked=True)
         e, _ = compare("kband", kband.banded_edit_distance_cuda,
@@ -432,7 +474,95 @@ def phase_kernels(dev, gpu, clock):
     pms = cuda_ms(lambda: align.batch_edit_distance_score(*args, **kw), 3)
     print(f"edit_score (B, N, rows) = ({B}, {N}, {M}): kernel {ms:.3f} ms, "
           f"plain {pms:.3f} ms  [{gpu}]", flush=True)
+    errs["kband"] = max(errs["kband"], wide_budgets(dev, gpu))
     return errs, times
+
+
+def wide_budget_batch(rng, B, n_lo, n_hi, ub_lo, ub_hi):
+    """Noisy-exon checks of long exons: len1 in [n_lo, n_hi], a budget
+    ub in [ub_lo, ub_hi] the band does not cover (2ub+1 < len1), len2
+    within ub of len1, seq2 seq1's prefix with ub/2 to 3ub point
+    mutations, so that some verdicts pass and some fail."""
+    alpha = np.frombuffer(b"ACGT", dtype=np.int8)
+    N = max(1024, _p4(n_hi))
+    s1 = alpha[rng.integers(0, 4, (B, N))]
+    len1 = rng.integers(n_lo, n_hi + 1, B).astype(np.int32)
+    band = np.array([rng.integers(ub_lo, min(ub_hi, (n - 2) // 2) + 1)
+                     for n in len1], dtype=np.int32)
+    len2 = (len1 - rng.integers(0, band // 4 + 1)).astype(np.int32)
+    M = _p4(int(len2.max()))
+    s2 = np.zeros((B, M), dtype=np.int8)
+    for b in range(B):
+        m = int(len2[b])
+        row = s1[b, :m].copy()
+        hits = rng.integers(0, m, int(rng.integers(band[b] // 2,
+                                                   3 * band[b])))
+        row[hits] = alpha[rng.integers(0, 4, len(hits))]
+        s2[b, :m] = row
+    return s1, len1, s2, len2, band, M
+
+
+def wide_budgets(dev, gpu):
+    """K-band budgets of 257 to 512 (exons of about 8.5 to 17 kb, whose
+    budget is 3% of their length): kband_kernel at k_max 512 (33 cells
+    a lane) equal to the plain version, and edit_score_kernel, the
+    full-matrix route such budgets took before, giving the same
+    verdicts; then both timed on four exons of about 9 kb.  Returns the
+    largest difference from the plain version."""
+    from pintron_tpu_torch.ops import align, kband
+    rng = np.random.default_rng(20261017)
+    s1, l1, s2, l2, band, M = wide_budget_batch(rng, 8, 600, 1100, 257,
+                                                512)
+    kw = dict(max_rows=M, k_max=512)
+    err, args = compare("kband", kband.banded_edit_distance_cuda,
+                        align.banded_edit_distance,
+                        (s1, l1, s2, l2, band), kw, dev)
+    dist = kband.banded_edit_distance_cuda(*args, **kw)
+    full = kband.batch_edit_distance_score_cuda(*args[:4], max_rows=M)
+    ok_band = (dist <= args[4]).cpu().numpy()
+    ok_full = (full <= args[4]).cpu().numpy()
+    if not np.array_equal(ok_band, ok_full):
+        raise AssertionError("kband_kernel and edit_score_kernel verdicts "
+                             "differ at budgets 257-512")
+    print(f"kband (B, len1, ub) = (8, {int(l1.min())}-{int(l1.max())}, "
+          f"{int(band.min())}-{int(band.max())}), k_max 512: kernel == "
+          f"plain; edit_score_kernel's verdicts equal "
+          f"({int(ok_band.sum())} of 8 pass)", flush=True)
+
+    # the shape of a real 9 kb exon: budget 3%, about 270
+    s1, l1, s2, l2, band, M = wide_budget_batch(rng, 4, 8800, 9200, 264,
+                                                276)
+    args = from_numpy_batch(s1, l1, s2, l2, band, device=dev)
+    band_ms = cuda_ms(lambda: kband.banded_edit_distance_cuda(
+        *args, max_rows=M, k_max=512), 3)
+    dist = kband.banded_edit_distance_cuda(*args, max_rows=M, k_max=512)
+    # edit_score_kernel walks len1 * len2 cells in one thread a problem:
+    # time it at a quarter of the length first, and at the full length
+    # only if that would take at most 5 s
+    cut = 4
+    q = (s1[:, :s1.shape[1] // cut].copy(), l1 // cut,
+         s2[:, :M // cut].copy(), l2 // cut)
+    qargs = from_numpy_batch(*q, device=dev)
+    q_ms = cuda_ms(lambda: kband.batch_edit_distance_score_cuda(
+        *qargs, max_rows=M // cut), 1)
+    if q_ms * cut * cut <= 5000:
+        full_ms = cuda_ms(lambda: kband.batch_edit_distance_score_cuda(
+            *args[:4], max_rows=M), 1)
+        full = kband.batch_edit_distance_score_cuda(*args[:4], max_rows=M)
+        if not torch.equal(full <= args[4], dist <= args[4]):
+            raise AssertionError("kband_kernel and edit_score_kernel "
+                                 "verdicts differ on the 9 kb exons")
+        full_txt = f"edit_score_kernel {full_ms:.3f} ms"
+    else:
+        full_txt = (f"edit_score_kernel not run at the full length (a "
+                    f"quarter of it took {q_ms:.3f} ms, so about "
+                    f"{q_ms * cut * cut:.0f} ms)")
+    print(f"budgets of a 9 kb exon (B, len1, ub) = (4, {int(l1.min())}-"
+          f"{int(l1.max())}, {int(band.min())}-{int(band.max())}): "
+          f"kband_kernel (k_max 512) {band_ms:.3f} ms, {full_txt}; "
+          f"edit_score_kernel at a quarter of the lengths {q_ms:.3f} ms  "
+          f"[{gpu}]", flush=True)
+    return err
 
 
 def random_windows(rng, B):

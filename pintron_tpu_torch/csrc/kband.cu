@@ -25,9 +25,10 @@
 // keeps the band vector in registers:
 //   * lane l owns the CPL adjacent band offsets o = l*CPL .. l*CPL+CPL-1
 //     (CPL = ceil(W/32), a template argument: the smallest of 1, 2, 4,
-//     8, 16 and 17 that holds W = 2*k_max+1; 17 because W = 513 at
-//     k_max = 256 is one cell more than 16 lanes' worth); offsets past
-//     W are padding that stays BIG;
+//     8, 16, 17 and 33 that holds W = 2*k_max+1; 17 because W = 513 at
+//     k_max = 256 is one cell more than 16 cells a lane, 33 for the
+//     budgets of 257 to 512, W = 1025); offsets past W are padding that
+//     stays BIG;
 //   * a warp runs to its own len2 (rows past len2 would keep the band,
 //     so the answer is read where the walk stops), so a launch is no
 //     longer held to its longest problem of 32, and a padded problem
@@ -59,11 +60,14 @@
 // problem (blocks of 128), the DP row in an int32 scratch laid out
 // (N+1, B) so a warp's loads and stores touch neighbouring words, and a
 // row as one ascending in-place walk with the left chain as the serial
-// relaxation run = min(cand, run + 1).  It runs once per STEP 4, on a
-// batch of windows of at most 15 bases.
+// relaxation run = min(cand, run + 1).  It serves the K-band problems
+// whose band covers the matrix (2*ub+1 >= n, exons of a few bases),
+// the budgets over 512 that kband_kernel does not take (exons over
+// about 17 kb), and STEP 4's edit stats (windows of at most 15 bases).
 // Characters are compared as raw bytes (int8), for equality only.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -96,13 +100,15 @@ kband_kernel(const int8_t* __restrict__ seq1, int n_cols,
   // inb: the lane's cells inside the band, |o - k_max| <= band (the
   // band is row-independent on the offset axis)
   int M[CPL];
-  unsigned inb = 0;
+  // one bit a cell: 33 cells a lane need a 64-bit mask
+  using Mask = std::conditional_t<(CPL > 32), unsigned long long, unsigned>;
+  Mask inb = 0;
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
     const int o = o0 + i;
     const int c = o - k_max;
     M[i] = (o < W && c >= 0 && c <= k) ? c : kBig;
-    if (o < W && abs(c) <= k) inb |= 1u << i;
+    if (o < W && abs(c) <= k) inb |= Mask{1} << i;
   }
 
   const int rows = min(max_rows, m);
@@ -136,7 +142,7 @@ kband_kernel(const int8_t* __restrict__ seq1, int n_cols,
       int cand = kBig;
       if (c == 0 && r <= k) {
         cand = r;  // boundary column, forced while r <= band
-      } else if (((inb >> i) & 1u) && c >= 1 && c <= n) {
+      } else if (((inb >> i) & 1) && c >= 1 && c <= n) {
         cand = min(M[i] + (win[i] != ch2 ? 1 : 0), up + 1);
       }
       x[i] = cand - o;
@@ -226,9 +232,9 @@ __global__ void edit_score_kernel(const int8_t* __restrict__ seq1,
 // stream and is not synchronised.  The return value is the
 // cudaGetLastError() of the launch (0 on success).
 
-// The widest band kband_kernel takes: W = 2*k_max+1 <= 17 * 32 (the
+// The widest band kband_kernel takes: W = 2*k_max+1 <= 33 * 32 (the
 // wrapper, ops/kband.py, raises on a wider one before the launch).
-constexpr int kMaxKmax = 256;
+constexpr int kMaxKmax = 512;
 
 extern "C" int pintron_kband(const void* seq1, int n_cols, const void* seq2,
                              int m_cols, const void* len1, const void* len2,
@@ -254,7 +260,10 @@ extern "C" int pintron_kband(const void* seq1, int n_cols, const void* seq2,
   if (W <= 512)
     return launch_kband<16>(seq1, n_cols, seq2, m_cols, len1, len2, band,
                             out, batch, max_rows, k_max, st);
-  return launch_kband<17>(seq1, n_cols, seq2, m_cols, len1, len2, band,
+  if (W <= 544)
+    return launch_kband<17>(seq1, n_cols, seq2, m_cols, len1, len2, band,
+                            out, batch, max_rows, k_max, st);
+  return launch_kband<33>(seq1, n_cols, seq2, m_cols, len1, len2, band,
                           out, batch, max_rows, k_max, st);
 }
 

@@ -25,9 +25,9 @@ import torch
 
 from pintron_tpu_torch.ops import align
 
-# the widest band kband_kernel takes: W = 2*k_max+1 <= 17 lanes' worth of
-# 32 cells (csrc/kband.cu)
-KMAX = 256
+# the widest band kband_kernel takes: W = 2*k_max+1 <= 33 cells a lane
+# of 32 lanes (csrc/kband.cu), the reference's widest budget route
+KMAX = 512
 
 LAUNCHES = {"kband": 0, "edit_score": 0, "nw": 0, "gap": 0,
             "rowmin": 0, "pwm": 0}

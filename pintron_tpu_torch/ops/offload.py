@@ -192,16 +192,31 @@ def _forget_service() -> None:
 os.register_at_fork(after_in_child=_forget_service)
 
 
+def _dial(addr: str):
+    """Connect to the service and take its ``hello`` answer: (Connection,
+    the service's device name)."""
+    from multiprocessing.connection import Client
+    conn = Client(addr, family="AF_UNIX", authkey=AUTHKEY)
+    try:
+        conn.send(("hello", None))
+        _status, served = conn.recv()
+    except BaseException:
+        conn.close()
+        raise
+    return conn, served
+
+
 def _service_conn():
     """This process's connection to the service, dialled on first use
-    (under _SERVICE_LOCK); returns (Connection, the service's device)."""
+    (under _SERVICE_LOCK); returns (Connection, the service's device).
+    The dial and the handshake run under the dispatch timeout: the
+    service answers ``hello`` only between batches, so a service stuck
+    in a batch raises DeviceTimeout here as the batch would."""
     global _SERVICE
     addr = service_socket()
     if _SERVICE is None or _SERVICE[0] != addr:
-        from multiprocessing.connection import Client
-        conn = Client(addr, family="AF_UNIX", authkey=AUTHKEY)
-        conn.send(("hello", None))
-        _status, served = conn.recv()
+        conn, served = device_call(
+            _dial, addr, what=f"device service handshake at {addr}")
         _SERVICE = (addr, conn, torch.device(served))
     return _SERVICE[1], _SERVICE[2]
 
@@ -294,8 +309,11 @@ def eval_kband(problems: List[Tuple[bytes, bytes, int]]):
 def _full_matrix(n: int, ub: int) -> bool:
     """A K-band problem goes to the full-matrix kernel when its band
     covers the matrix, or is wider than the band kernel takes (ub >
-    KMAX).  The verdict dist <= ub is the same either way: a path of
-    cost <= ub never leaves the band of half-width ub."""
+    KMAX = 512, exons over about 17 kb).  The verdict dist <= ub is the
+    same either way: a path of cost <= ub never leaves the band of
+    half-width ub.  The JAX package sends every budget to its band op,
+    so only the cells of a budget over 512 are counted differently
+    (len(a) * len(b) here, len(b) * (2ub+1) there)."""
     return 2 * ub + 1 >= n or ub > KMAX
 
 
@@ -385,11 +403,13 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
 
 
 # ---- the traceback families ------------------------------------------------
-# Per-problem size bounds.  NW and gap keep a (B, N, M) int8 direction
-# scratch per bucket: the area and length bounds are the JAX package's
-# (offload.py:504-506, :575-577), and with the sub-batch cap below they
-# hold a launch's scratch at 256 MB.  rb needs no scratch; its text
-# window is a DP row, at most the kernels' widest (MAX_WIDTH).
+# Per-problem size bounds.  gap keeps a (B, N, M) int8 direction scratch
+# per bucket, NW its 2-bit directions and a row buffer, at most N * M
+# bytes a problem too (traceback.nw_scratch): the area and length bounds
+# are the JAX package's (offload.py:504-506, :575-577), and with the
+# sub-batch cap below they hold a launch's scratch at 256 MB.  rb needs
+# no scratch; its text window is a DP row, at most the kernels' widest
+# (MAX_WIDTH).
 MAX_AREA = 1 << 21
 MAX_LEN_SUM = 8192
 SCRATCH_BYTES = 1 << 28

@@ -23,8 +23,8 @@ from pintron_tpu_torch.ops import align
 from pintron_tpu_torch.ops.kband import (_check_batch, _count,
                                          _cuda_launch_context)
 
-# widest DP row a kernel takes: 512 threads x 32 columns each
-# (csrc/rowscan.cuh)
+# widest DP row a kernel takes: 512 threads x 32 columns each for gap
+# and rowmin (csrc/rowscan.cuh); nw keeps the same limit
 MAX_WIDTH = 16384
 
 
@@ -32,6 +32,20 @@ def _check_width(name: str, width: int) -> None:
     if width > MAX_WIDTH:
         raise ValueError(f"{name}: {width} columns > {MAX_WIDTH}, the widest "
                          "row the kernels take")
+
+
+# nw_kernel keeps the directions of a lane's strip of NW_ROWS est rows at
+# one gen column in one 32-bit word (csrc/nw.cu)
+NW_ROWS = 16
+
+
+def nw_scratch(B: int, max_n: int, max_m: int, device):
+    """nw_kernel's two int32 scratch buffers: the 2-bit directions, one
+    word a strip of NW_ROWS rows and a column, and the row buffer that
+    carries a pass's last row to the next."""
+    return (torch.empty((B, -(-max_n // NW_ROWS), max_m), dtype=torch.int32,
+                        device=device),
+            torch.empty((B, max_m + 1), dtype=torch.int32, device=device))
 
 
 def _traceback_cuda(key: str, est, elen, gen, glen, max_n: int,
@@ -47,12 +61,16 @@ def _traceback_cuda(key: str, est, elen, gen, glen, max_n: int,
     if B == 0:
         return head, ops, nsteps
     lib, stream = _cuda_launch_context(dev, key)
-    dirs = torch.empty((B, max_n, max_m), dtype=torch.int8, device=dev)
+    if key == "nw":
+        scratch = nw_scratch(B, max_n, max_m, dev)
+    else:
+        scratch = [torch.empty((B, max_n, max_m), dtype=torch.int8,
+                               device=dev)]
     with torch.cuda.device(dev):
         err = getattr(lib, f"pintron_{key}")(
             est.data_ptr(), max_n, gen.data_ptr(), max_m, elen.data_ptr(),
-            glen.data_ptr(), dirs.data_ptr(), head.data_ptr(),
-            ops.data_ptr(), nsteps.data_ptr(), B, stream)
+            glen.data_ptr(), *(t.data_ptr() for t in scratch),
+            head.data_ptr(), ops.data_ptr(), nsteps.data_ptr(), B, stream)
     if err:
         raise RuntimeError(f"{key}_kernel launch failed: cudaError {err}")
     _count(key)

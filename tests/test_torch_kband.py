@@ -44,7 +44,8 @@ def batch(seed, B, n_cols, m_cols, k_max, device):
 
 
 BIG = align.BIG
-CPLS = (1, 2, 4, 8, 16, 17)   # the kernel's instantiations (csrc/kband.cu)
+# the kernel's instantiations (csrc/kband.cu)
+CPLS = (1, 2, 4, 8, 16, 17, 33)
 
 
 def _shfl_up(v, d):
@@ -100,7 +101,7 @@ def warp_model(s1, len1, s2, len2, band, *, max_rows, k_max, cpl):
     return M.reshape(B, 32 * cpl)[np.arange(B), final].astype(np.int32)
 
 
-@pytest.mark.parametrize("W", [5, 33, 65, 129, 257])
+@pytest.mark.parametrize("W", [5, 33, 65, 129, 257, 1025])
 def test_warp_model_matches_plain_and_jax(W):
     """The warp design's decomposition of a row gives the plain
     version's and the JAX op's integers on every problem, at every CPL
@@ -129,7 +130,7 @@ def test_warp_model_matches_plain_and_jax(W):
 
 def test_kmax_beyond_the_kernel_raises():
     s1, l1, s2, l2, band = batch(5, 4, 16, 8, 2, "cpu")
-    with pytest.raises(ValueError, match="k_max 257 > 256"):
+    with pytest.raises(ValueError, match="k_max 513 > 512"):
         kband.banded_edit_distance_cuda(s1, l1, s2, l2, band, max_rows=8,
                                         k_max=kband.KMAX + 1)
 
@@ -209,10 +210,10 @@ def test_kernels_match_plain_on_card(cuda_device, B, n_cols, m_cols, k_max):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_max", [2, 15, 16, 31, 32, 63, 64, 127, 128, 255,
-                                   256])
+                                   256, 271, 272, 511, 512])
 def test_kband_kernel_every_warp_layout_on_card(cuda_device, k_max):
     """kband_kernel at every cells-a-lane instantiation (CPL 1, 2, 4, 8,
-    16 and 17) and at both edges of each, equal to the plain version on
+    16, 17 and 33) and at both edges of each, equal to the plain version on
     every problem, with B not a multiple of the block's 4 warps."""
     m_cols = max(48, 2 * k_max)
     n_cols = m_cols + k_max + 8

@@ -82,38 +82,85 @@ def test_eval_kband_matches_jax_and_native(cpu_offload):
     assert st["batches"] >= 2           # one full + one band group at least
 
 
-def test_budget_beyond_the_band_kernel_goes_to_the_full_matrix(
-        cpu_offload, monkeypatch):
-    """A budget over kband.KMAX never reaches the band kernel (which
-    raises for it): the full-matrix kernel gives the same verdict as
-    the native ep_kband."""
-    lib = get_lib()
-    if lib is None:
-        pytest.skip("native library unavailable")
-    rng = np.random.default_rng(5)
+def _budget_problems(rng, specs):
+    """(gen, est, ub) problems: est is gen with ``edits`` point
+    mutations (an unrelated sequence for edits < 0), cut to ``m``."""
     problems = []
-    for n, edits, ub in ((600, 100, 260), (800, -1, 260),
-                         (600, 20, 30), (700, 150, 257)):
+    for n, m, edits, ub in specs:
         g = "".join(rng.choice(ALPHA, n)).encode()
         el = list(g.decode())
         for _ in range(edits):
             el[int(rng.integers(0, n))] = str(rng.choice(ALPHA))
         if edits < 0:   # an unrelated sequence: distance far over ub
             el = list(rng.choice(ALPHA, n))
-        problems.append((g, "".join(el).encode()[:n - 5], ub))
-    widths = []
-    real = cpu_offload.banded_edit_distance_cuda
+        problems.append((g, "".join(el).encode()[:m], ub))
+    return problems
 
-    def spy(*a, k_max, **k):
+
+@pytest.fixture
+def one_torch_thread():
+    """Batches as wide as k_max 512's band on one intra-op thread: the
+    suite runs several workers at once, and their OpenMP teams spinning
+    against each other stall such a batch for minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_budget_beyond_the_band_kernel_goes_to_the_full_matrix(
+        cpu_offload, monkeypatch, fresh_jax_stats, one_torch_thread):
+    """Budgets of 257 to 512 go to the band kernel at k_max 512, as in
+    the JAX package, and the counters equal its counters; a budget over
+    kband.KMAX (512) never reaches the band kernel (which raises for
+    it): the full-matrix kernel gives the same verdict as the native
+    ep_kband, and its cells count as len(a) * len(b)."""
+    lib = get_lib()
+    if lib is None:
+        pytest.skip("native library unavailable")
+    rng = np.random.default_rng(5)
+    widths, full = [], []
+    band_real = cpu_offload.banded_edit_distance_cuda
+    full_real = cpu_offload.batch_edit_distance_score_cuda
+
+    def band_spy(*a, k_max, **k):
         widths.append(k_max)
-        return real(*a, k_max=k_max, **k)
+        return band_real(*a, k_max=k_max, **k)
 
-    monkeypatch.setattr(cpu_offload, "banded_edit_distance_cuda", spy)
+    def full_spy(*a, **k):
+        full.append(a[0].shape[0])
+        return full_real(*a, **k)
+
+    monkeypatch.setattr(cpu_offload, "banded_edit_distance_cuda", band_spy)
+    monkeypatch.setattr(cpu_offload, "batch_edit_distance_score_cuda",
+                        full_spy)
+    problems = _budget_problems(rng, ((600, 595, 100, 260),
+                                      (800, 795, -1, 260),
+                                      (600, 595, 20, 30),
+                                      (700, 695, 150, 257),
+                                      (1000, 990, 40, 480)))
     got = cpu_offload.eval_kband(problems)
-    assert widths == [32]
+    assert widths == [512] and full == []
     for i, (g, e, ub) in enumerate(problems):
         assert int(got[i]) == _host_ep_kband_ok(lib, g, e, ub), i
     assert got.tolist()[:2] == [1, 0]
+    np.testing.assert_array_equal(got, jax_off.eval_kband(problems))
+    assert _port_counts(cpu_offload) == _jax_counts()
+
+    # over KMAX, the band not covering the matrix: the full matrix
+    assert cpu_offload._full_matrix(1030, 513)
+    assert not cpu_offload._full_matrix(1030, 512)
+    # the same route end to end at a small width, with KMAX lowered
+    monkeypatch.setattr(cpu_offload, "KMAX", 8)
+    cpu_offload.reset_stats()
+    widths.clear()
+    over = _budget_problems(rng, ((120, 115, 3, 9), (120, 115, -1, 9)))
+    got = cpu_offload.eval_kband(over)
+    assert widths == [] and full == [64]
+    for i, (g, e, ub) in enumerate(over):
+        assert int(got[i]) == _host_ep_kband_ok(lib, g, e, ub), i
+    assert got.tolist() == [1, 0]
+    assert cpu_offload.STATS["device_cells"] == 2 * 120 * 115
 
 
 def test_eval_kband_needs_a_device(monkeypatch):
@@ -179,6 +226,35 @@ def test_wedged_device_short_circuits(cpu_offload, monkeypatch):
     assert cpu_offload.eval_kband([(b"ACGT", b"ACGA", 1)]).tolist() == [1]
     assert ran == [1]
     assert cpu_offload.STATS["device_timeouts"] == 2
+
+
+def test_silent_service_handshake_times_out(monkeypatch, tmp_path):
+    """A service that accepts the connection and never answers (one
+    stuck in a batch answers no ``hello``): the dial and the handshake
+    raise DeviceTimeout within the dispatch timeout."""
+    import socket
+    import time
+    path = str(tmp_path / "silent.sock")
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(path)
+    srv.listen(1)
+    held = []
+    threading.Thread(target=lambda: held.append(srv.accept()),
+                     daemon=True).start()
+    monkeypatch.setenv(offload.SERVICE_ENV, path)
+    monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "1")
+    monkeypatch.setattr(offload, "_SERVICE", None)
+    monkeypatch.setattr(offload, "_DEVICE", None)
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(offload.DeviceTimeout, match="handshake"):
+            offload.use_device("cpu")
+        assert time.monotonic() - t0 < 10
+        assert offload._SERVICE is None and offload._DEVICE is None
+    finally:
+        for conn, _addr in held:
+            conn.close()
+        srv.close()
 
 
 def test_device_call_raises_past_its_timeout(monkeypatch):

@@ -200,6 +200,167 @@ def test_rowmin_plain_matches_host():
                                       M.argmin(axis=1))
 
 
+# ---- a numpy model of nw_kernel's warp design -----------------------------
+
+def _wild(c):
+    return (c == ord("N")) | (c == ord("n"))
+
+
+def _shfl_up1(v):
+    """__shfl_up_sync by one over the lane axis (axis 1)."""
+    out = v.copy()
+    out[:, 1:] = v[:, :-1]
+    return out
+
+
+def nw_warp_model(est, elen, gen, glen, *, max_n, max_m, R=16, strips=3):
+    """numpy model of nw_kernel, all problems at once, one warp of 32
+    lanes each: passes of 32 * R est rows, lane l holding rows
+    l*R+1 .. l*R+R of a pass; step s of a pass computes column s - l + 1
+    on lane l from its own previous column, lane l-1's last row and gen
+    character of one step earlier (lane 0: the gen window and the row
+    buffer), with the in-lane running minimum of the candidates - r; the
+    R direction codes of a lane's column packed 2 bits a row into one
+    word at (strip, column); lane 31 keeping the pass's last row; then
+    the walk through tiles of ``strips`` strips x 32 columns.  Returns
+    (score, ops, nsteps) as the kernel's wrapper does."""
+    B = len(elen)
+    est, gen = est.astype(np.int64), gen.astype(np.int64)
+    n = np.clip(elen.astype(np.int64), 0, max_n)
+    m = np.clip(glen.astype(np.int64), 0, max_m)
+    P = 32 * R
+    lane = np.arange(32)
+    D = np.zeros((B, -(-max_n // R), max_m), dtype=np.int64)
+    top = np.zeros((B, max_m + 1), dtype=np.int64)
+    col = np.zeros((B, 32, R), dtype=np.int64)
+    bi = np.arange(B)[:, None, None]
+    for p0 in range(0, int(n.max(initial=0)), P):
+        inpass = (m > 0) & (p0 < n)
+        lact = np.minimum(32, (n - p0 + R - 1) // R)
+        keep = p0 + P < n
+        rows = p0 + lane[:, None] * R + np.arange(R)[None, :] + 1  # (32, R)
+        ec = np.where(rows[None] <= n[:, None, None],
+                      est[bi, np.clip(rows - 1, 0, max_n - 1)[None]], 0)
+        ew = _wild(ec)
+        col = np.where(inpass[:, None, None], rows[None], col)
+        diag_top = np.broadcast_to(rows[:, 0] - 1, (B, 32)).copy()
+        bottom = np.zeros((B, 32), dtype=np.int64)
+        gch = np.zeros((B, 32), dtype=np.int64)
+        steps = np.where(inpass, m + lact - 1, 0)
+        for s in range(int(steps.max(initial=0))):
+            j0 = s + 1                      # lane 0's column
+            g0 = np.where(j0 <= m, gen[:, min(j0, max_m) - 1], 0)
+            t0 = np.where(j0 <= m, j0 if p0 == 0
+                          else top[:, min(j0, max_m)], 0)
+            up_in = _shfl_up1(bottom)
+            up_in[:, 0] = t0
+            gch = _shfl_up1(gch)
+            gch[:, 0] = g0
+            j = s - lane + 1
+            act = ((lane[None] < lact[:, None]) & (j[None] >= 1)
+                   & (j[None] <= m[:, None]) & inpass[:, None])
+            wg = _wild(gch)
+            prev, vprev, y = diag_top, up_in, up_in + 1
+            word = np.zeros((B, 32), dtype=np.int64)
+            new = col.copy()
+            for r in range(R):
+                L = col[:, :, r]
+                match = (gch == ec[:, :, r]) | wg | ew[:, :, r]
+                diag = prev + ~match
+                left = L + 1
+                y = np.minimum(y, np.minimum(diag, left) - r)
+                v = y + r
+                up = vprev + 1
+                d = np.where(left < np.minimum(diag, up), 2,
+                             np.where(up < diag, 1, 0))
+                word |= d << (2 * r)
+                prev, vprev = L, v
+                new[:, :, r] = v
+            col = np.where(act[:, :, None], new, col)
+            bottom = np.where(act, col[:, :, R - 1], bottom)
+            diag_top = np.where(act, up_in, diag_top)
+            bb, ll = np.nonzero(act)
+            D[bb, p0 // R + ll, j[ll] - 1] = word[bb, ll]
+            wr = act[:, 31] & keep
+            top[wr, j[31]] = bottom[wr, 31]
+    score = np.where(n == 0, m, n)
+    T = max_n + max_m
+    ops = np.full((B, T), 3, dtype=np.int8)
+    nsteps = np.zeros(B, dtype=np.int32)
+    for b in range(B):
+        if n[b] and m[b]:
+            last = (n[b] - 1) // P * P
+            score[b] = col[b, (n[b] - 1 - last) // R, (n[b] - 1) % R]
+        i, j, s = int(n[b]), int(m[b]), 0
+        while i > 0 and j > 0:
+            st = (i - 1) // R
+            tile = np.zeros((strips, 32), dtype=np.int64)
+            for q in range(strips):
+                for ln in range(32):
+                    if st - q >= 0 and j - ln >= 1:
+                        tile[q, ln] = D[b, st - q, j - ln - 1]
+            i_lo, j_lo, j0 = max((st - strips + 1) * R, 0), max(j - 32, 0), j
+            while i > i_lo and j > j_lo:
+                d = (tile[st - (i - 1) // R, j0 - j]
+                     >> (2 * ((i - 1) % R))) & 3
+                ops[b, s] = d
+                s += 1
+                i -= d != 2
+                j -= d != 1
+        nsteps[b] = s
+    return score.astype(np.int32), ops, nsteps
+
+
+def nw_model_cases(seed, long_len):
+    """nw_cases plus the model's edges: ests longer than a pass of 32
+    lanes' strips (``long_len``), e == g, an all-wildcard est, one row
+    and one column, and both sides empty."""
+    rng = np.random.default_rng(seed)
+    e = "".join(rng.choice(ACGT, long_len))
+    g = _mutate(rng, e, long_len // 20)[: long_len - 7]
+    wild = "".join(rng.choice(WILD, long_len // 2))
+    return nw_cases(seed, count=24) + [
+        (e, e), (e, g), (g, e + "ACGT"), (e, "A"), ("C", e), (wild, g),
+        ("N" * 40, "ACGTACGT"), ("G", "G"), ("", e), (e, "")]
+
+
+@pytest.mark.parametrize("R,long_len", [(16, 700), (2, 150)])
+def test_nw_warp_model_matches_plain_and_jax(R, long_len):
+    """The warp design's decomposition (lanes x row strips x skewed
+    column sweep, passes through the row buffer, 2-bit words, the tiled
+    walk) gives the plain version's and the JAX op's score, ops and
+    step counts on every problem; R = 16 is the kernel's, R = 2 runs
+    many passes on short ests."""
+    jalign = pytest.importorskip("pintron_tpu.ops.align")
+    s1, l1, s2, l2 = encode(nw_model_cases(70 + R, long_len), pad=3)
+    N, M = s1.shape[1], s2.shape[1]
+    assert l1.max() > 32 * R and (l1 == 0).any() and (l2 == 0).any()
+    score, ops, nsteps = (t.numpy() for t in align.batch_nw_traceback(
+        *_torch(s1, l1, s2, l2), max_n=N, max_m=M))
+    score_j, fused = jalign.batch_nw_traceback(s1, l1, s2, l2, max_n=N,
+                                               max_m=M)
+    ops_j, n_j = jalign.decode_nw_fused(fused, N + M)
+    np.testing.assert_array_equal(score, np.asarray(score_j))
+    np.testing.assert_array_equal(nsteps, n_j)
+    got = nw_warp_model(s1, l1, s2, l2, max_n=N, max_m=M, R=R)
+    np.testing.assert_array_equal(got[0], score)
+    np.testing.assert_array_equal(got[1], ops)
+    np.testing.assert_array_equal(got[2], nsteps)
+    for b in range(len(l1)):
+        np.testing.assert_array_equal(got[1][b, :n_j[b]], ops_j[b, :n_j[b]])
+
+
+def test_nw_scratch_is_at_most_the_offloads_cap():
+    """nw_kernel's scratch (the 2-bit words and the row buffer) stays
+    within the N * M bytes a problem the offload's sub-batching
+    (offload.SCRATCH_BYTES) counts for every bucket it forms."""
+    for N in (16, 64, 256, 1024, 4096, 16384):
+        for M in (16, 64, 256, 1024, 4096, 16384):
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in traceback.nw_scratch(1, N, M, "meta"))
+            assert nbytes <= N * M, (N, M)
+
+
 # ---- wrappers ---------------------------------------------------------------
 
 WRAPPERS = [
@@ -314,3 +475,24 @@ def test_rowmin_kernel_matches_plain_on_card(cuda_device, pad):
     assert torch.equal(vals[live], pv[live])
     assert torch.equal(pos[live], pp[live])
     assert kband.LAUNCHES["rowmin"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [1, 4, 6, 10, 14, 20])
+def test_nw_kernel_main_path_shapes_on_card(cuda_device, index):
+    """nw_kernel at launch shapes STEP 2 gives it (measure_nw's 21):
+    one problem of (256, 64), the 4096 buckets of TP53 and issue-13, the
+    331 problems of (256, 256), the 15 of (64, 256) and the 220 of
+    (1024, 1024), equal to the plain version on every problem."""
+    from pintron_tpu_torch.measure_nw import (MAIN_PATH_NW_SHAPES,
+                                              main_path_nw_batch)
+    est, elen, gen, glen, N, M = main_path_nw_batch(
+        MAIN_PATH_NW_SHAPES[index], index)
+    args = _torch(est, elen, gen, glen, device=cuda_device)
+    before = kband.LAUNCHES["nw"]
+    got = traceback.batch_nw_traceback_cuda(*args, max_n=N, max_m=M)
+    want = align.batch_nw_traceback(*args, max_n=N, max_m=M)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kband.LAUNCHES["nw"] == before + 1
