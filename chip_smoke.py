@@ -16,8 +16,9 @@ failure (so the script exits non-zero and never prints its last line):
      (pintron_tpu_torch.measure_kband), budgets of 257 to 512 on
      kband_kernel against the plain version and edit_score_kernel's
      verdicts, both timed on 9 kb exons, the 21 launch shapes STEP 2
-     gives nw_kernel (pintron_tpu_torch.measure_nw), the shapes the
-     loci give the gap and rowmin kernels, and pwm_kernel bit for bit
+     gives nw_kernel (pintron_tpu_torch.measure_nw) and the 8 it gives
+     gap_kernel (pintron_tpu_torch.measure_gap), the shape the loci
+     give rowmin_kernel, and pwm_kernel bit for bit
      on seeded windows (N bases, codes outside 0..3, B = 1 and B not a
      multiple of 32, the issue-13 sweep's shape (8425, 12)); times of
      both (CUDA events) at the shapes the main path gives them,
@@ -60,8 +61,8 @@ what bounds it, and the one PyTorch call that computes the same
 function where there is one (F.conv1d for pwm_kernel; null elsewhere; for these two,
 also their times on the card alone, "device_ms" and
 "library_device_ms", as their calls' times are the host's dispatch).
-kband_kernel's and nw_kernel's times and bounds are the sums over
-their 12 and 21 main-path shapes.  The floor of the dependent chain of
+kband_kernel's, nw_kernel's and gap_kernel's times and bounds are the
+sums over their 12, 21 and 8 main-path shapes.  The floor of the dependent chain of
 each row-serial DP (its longest problem's rows times the least latency
 of a row) is printed on
 the kernel's own lines of phase 3, beside its bound, and kept out of
@@ -108,7 +109,7 @@ KERNELS = {
     "edit_score": ("pintron_tpu_torch/csrc/kband.cu",
                    "pintron_tpu/ops/align.py:144"),
     "nw": ("pintron_tpu_torch/csrc/nw.cu", "pintron_tpu/ops/align.py:241"),
-    "gap": ("pintron_tpu_torch/csrc/gap.cu", "pintron_tpu/ops/align.py:353"),
+    "gap": ("pintron_tpu_torch/csrc/gap.cu", "pintron_tpu/ops/align.py:354"),
     "rowmin": ("pintron_tpu_torch/csrc/rowmin.cu",
                "pintron_tpu/ops/align.py:176"),
     "pwm": ("pintron_tpu_torch/csrc/pwm.cu", "pintron_tpu/ops/pwm.py:48"),
@@ -258,34 +259,13 @@ def phase_traceback_kernels(dev, gpu, clock):
     errs = {"nw": 0, "gap": 0, "rowmin": 0}
     times = {}
 
-    def run_tb(name, B, N, M, reps=0, plain_reps=1):
-        batch = random_pair_batch(rng, B, N, M)
-        args = from_numpy_batch(*batch, device=dev)
+    def run_tb(name, B, N, M):
+        args = from_numpy_batch(*random_pair_batch(rng, B, N, M),
+                                device=dev)
         kernel, plain = tb[name]
         kw = dict(max_n=N, max_m=M)
         errs[name] = max(errs[name], compare_all(
             name, kernel(*args, **kw), plain(*args, **kw)))
-        if reps:
-            ms = cuda_ms(lambda: kernel(*args, **kw), reps)
-            pms = cuda_ms(lambda: plain(*args, **kw), plain_reps)
-            # bytes: both windows and the lengths in, the ops (one byte
-            # a step, at most elen + glen), score and step count out;
-            # operations: about 10 a cell of the 3 matrices, over the
-            # INT32 peak; chain: elen rows of glen + 1 columns, then
-            # elen + glen traceback steps
-            elen = batch[1].astype(np.int64)
-            glen = batch[3].astype(np.int64)
-            cells = 3 * (elen + 1) * (glen + 1)
-            b_ms, by = bound(2 * int((elen + glen).sum()) + 16 * B,
-                             10 * int(cells.sum()), INT32_OPS_PER_S)
-            chain = max(row_floor_ms(int(e), int(g) + 1, clock)
-                        + (int(e) + int(g)) * 4 / clock * 1e3
-                        for e, g in zip(elen, glen))
-            times.setdefault(name, (ms, pms, b_ms, by, chain))
-            print(f"{name} (B, est, gen) = ({B}, {N}, {M}): kernel "
-                  f"{ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms:.5f} ms "
-                  f"({by}), chain floor {chain:.5f} ms  [{gpu}]",
-                  flush=True)
 
     def run_rowmin(B, N, M, reps=0):
         # (text, pattern) = (gen, est) windows, rows past len2 unspecified
@@ -318,58 +298,72 @@ def phase_traceback_kernels(dev, gpu, clock):
                   flush=True)
 
     # edge cases: odd widths, one column per thread and up to 32, the
-    # widest row a kernel takes
+    # widest row a kernel takes; ests of one pass and of several, the
+    # last pass of a few rows; gen windows narrower than a warp
     for B, N, M in ((37, 24, 37), (100, 64, 256), (33, 300, 1000),
-                    (5, 2000, 9000), (3, 40, 16384)):
+                    (5, 2000, 9000), (3, 40, 16384), (9, 530, 700),
+                    (40, 30, 16), (10, 100, 20)):
         run_tb("nw", B, N, M)
         run_tb("gap", B, N, M)
     for B, N, M in ((37, 37, 24), (50, 1024, 64), (7, 16384, 40)):
         run_rowmin(B, N, M)
     print("edge-case batches: nw, gap and rowmin kernels == plain on "
           "every problem", flush=True)
-    # the shapes the loci give the kernels: the 21 NW launches of STEP 2
-    # on TP53 and issue-13, the (64, 256) gap bucket at its largest
-    # batch, the largest rb batch
-    errs["nw"] = max(errs["nw"], nw_main_path(dev, gpu, clock, times))
-    run_tb("gap", 788, 64, 256, reps=10, plain_reps=2)
+    # the shapes the loci give the kernels: the 21 NW and the 8 gap
+    # launches of STEP 2 on TP53 and issue-13, the (64, 256) gap bucket
+    # at one random batch of 788, the largest rb batch
+    for key in ("nw", "gap"):
+        errs[key] = max(errs[key], main_path_launches(key, dev, gpu, clock,
+                                                      times))
+    run_tb("gap", 788, 64, 256)
     run_rowmin(146, 64, 64, reps=10)
     return errs, times
 
 
-def nw_main_path(dev, gpu, clock, times):
-    """nw_kernel at the 21 launches STEP 2 gives it on TP53 and issue-13
-    (pintron_tpu_torch.measure_nw), each equal to the plain version on
-    every problem and timed; times["nw"] gets the sums over the 21.
-    Returns the largest difference from the plain version."""
-    from pintron_tpu_torch.measure_nw import (MAIN_PATH_NW_SHAPES,
-                                              main_path_nw_batch, nw_bound)
+def main_path_launches(key, dev, gpu, clock, times):
+    """nw_kernel or gap_kernel at the launches STEP 2 gives it on TP53
+    and issue-13 (pintron_tpu_torch.measure_nw's 21, measure_gap's 8),
+    each equal to the plain version on every problem and timed back to
+    back and on the card alone; times[key] gets the sums.  Returns the
+    largest difference from the plain version."""
+    if key == "nw":
+        from pintron_tpu_torch.measure_nw import (
+            MAIN_PATH_NW_SHAPES as shapes, main_path_nw_batch as make,
+            nw_bound as bound_fn)
+    else:
+        from pintron_tpu_torch.measure_gap import (
+            MAIN_PATH_GAP_SHAPES as shapes, main_path_gap_batch as make,
+            gap_bound as bound_fn)
     from pintron_tpu_torch.ops import align, traceback
-    total = [0.0, 0.0, 0.0, 0.0]
+    kernel = getattr(traceback, f"batch_{key}_traceback_cuda")
+    plain = getattr(align, f"batch_{key}_traceback")
+    total = [0.0, 0.0, 0.0, 0.0, 0.0]
     by_main, err = {}, 0
-    for i, shape in enumerate(MAIN_PATH_NW_SHAPES):
-        est, elen, gen, glen, N, M = main_path_nw_batch(shape, i)
+    for i, shape in enumerate(shapes):
+        est, elen, gen, glen, N, M = make(shape, i)
         args = from_numpy_batch(est, elen, gen, glen, device=dev)
         kw = dict(max_n=N, max_m=M)
-        err = max(err, compare_all(
-            "nw", traceback.batch_nw_traceback_cuda(*args, **kw),
-            align.batch_nw_traceback(*args, **kw)))
-        ms = cuda_ms(lambda: traceback.batch_nw_traceback_cuda(*args, **kw),
-                     10)
-        pms = cuda_ms(lambda: align.batch_nw_traceback(*args, **kw), 1)
-        b_ms, by, chain = nw_bound(elen, glen, clock)
+        err = max(err, compare_all(key, kernel(*args, **kw),
+                                   plain(*args, **kw)))
+        ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+        dms = device_ms(lambda: kernel(*args, **kw), 10)
+        pms = cuda_ms(lambda: plain(*args, **kw), 1)
+        b_ms, by, chain = bound_fn(elen, glen, clock)
         by_main[by] = by_main.get(by, 0.0) + b_ms
-        for j, v in enumerate((ms, pms, b_ms, chain)):
+        for j, v in enumerate((ms, pms, b_ms, chain, dms)):
             total[j] += v
-        print(f"nw main path {shape[0]} (B {shape[1]}, bucket ({N}, {M}), "
-              f"longest {int(elen.max())} x {int(glen.max())}): kernel "
-              f"{ms:.4f} ms, plain {pms:.3f} ms, bound {b_ms:.5f} ms "
-              f"({by}), chain floor {chain:.5f} ms  [{gpu}]", flush=True)
-    times["nw"] = (total[0], total[1], total[2],
-                   max(by_main, key=by_main.get), total[3])
-    print(f"nw: the 21 main-path launches == plain on every problem; "
-          f"kernel {total[0]:.4f} ms in all, plain {total[1]:.3f} ms, "
-          f"bound {total[2]:.5f} ms, chain floor {total[3]:.5f} ms  "
-          f"[{gpu}]", flush=True)
+        print(f"{key} main path {shape[0]} (B {shape[1]}, bucket ({N}, "
+              f"{M}), longest {int(elen.max())} x {int(glen.max())}): "
+              f"kernel {ms:.4f} ms, on the card alone {dms:.4f} ms, plain "
+              f"{pms:.3f} ms, bound {b_ms:.5f} ms ({by}), chain floor "
+              f"{chain:.5f} ms  [{gpu}]", flush=True)
+    times[key] = (total[0], total[1], total[2],
+                  max(by_main, key=by_main.get), total[3])
+    print(f"{key}: the {len(shapes)} main-path launches == plain on every "
+          f"problem; kernel {total[0]:.4f} ms in all, on the card alone "
+          f"{total[4]:.4f} ms, plain {total[1]:.3f} ms, bound "
+          f"{total[2]:.5f} ms, chain floor {total[3]:.5f} ms  [{gpu}]",
+          flush=True)
     return err
 
 

@@ -1,6 +1,7 @@
-// Block-wide building blocks of the row-parallel DP kernels (nw.cu,
-// gap.cu, rowmin.cu): one block per problem, each thread owning a
-// contiguous span of `cpt` columns of the DP row.
+// Block-wide building blocks of the row-parallel DP kernel of rowmin.cu
+// (the nw.cu and gap.cu kernels run a warp per problem and use none of
+// it): one block per problem, each thread owning a contiguous span of
+// `cpt` columns of the DP row.
 //
 // The DP row lives in shared memory in a thread-major layout: column
 // j = 1 + t * cpt + k (thread t, k < cpt) sits at index k * T + t, so
@@ -9,9 +10,9 @@
 // is never stored: its value is known in closed form.
 //
 // The in-row left chain of each DP row is closed by an exclusive
-// block-wide scan over the threads' span aggregates (min for the edit
-// DPs, max for the gap scores), the same associative prefix the JAX ops
-// take with lax.cummin / lax.cummax, so the integers are the same.
+// block-wide min scan over the threads' span aggregates, the same
+// associative prefix the JAX op takes with lax.cummin, so the integers
+// are the same.
 
 #pragma once
 
@@ -28,13 +29,6 @@ struct MinOp {
   static __device__ __forceinline__ int identity() { return INT_MAX; }
   __device__ __forceinline__ int operator()(int a, int b) const {
     return min(a, b);
-  }
-};
-
-struct MaxOp {
-  static __device__ __forceinline__ int identity() { return INT_MIN; }
-  __device__ __forceinline__ int operator()(int a, int b) const {
-    return max(a, b);
   }
 };
 
@@ -99,10 +93,6 @@ __device__ __forceinline__ long long block_min(long long x,
       x = min(x, __shfl_xor_sync(0xffffffffu, x, off));
   }
   return x;
-}
-
-__device__ __forceinline__ bool wildcard(int8_t c) {
-  return c == 'N' || c == 'n';
 }
 
 // Launch geometry for a row `width` columns wide: the fewest columns per

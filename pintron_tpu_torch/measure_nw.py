@@ -75,11 +75,13 @@ MAIN_PATH_NW_SHAPES = (
 OPS_PER_CELL = 10
 
 
-def _lengths(B: int, bucket: int, longest: int, median: int):
+def _lengths(B: int, bucket: int, longest: int, median: int,
+             shortest: int = 0):
     """B lengths in the bucket (bucket/4, bucket]: evenly spaced
-    quantiles, piecewise linear from the bucket's floor through the
-    median to the longest, the largest set to the longest."""
-    lo = bucket // 4 + 1
+    quantiles, piecewise linear from the shortest (by default the
+    bucket's floor) through the median to the longest, the largest set
+    to the longest."""
+    lo = shortest or bucket // 4 + 1
     u = (np.arange(B) + 0.5) / B
     med = min(max(median, lo), longest)
     x = np.where(u <= 0.5, lo + (med - lo) * u / 0.5,
@@ -136,28 +138,29 @@ def nw_bound(elen, glen, clock_hz: float):
     return t_ops, "operations", chain
 
 
-def build_block_kernel(src: str, label: str):
-    """Build a version of nw.cu with the block-per-problem kernel's C
-    interface and return a launcher of it."""
-    lib = build_other(src, f"nw-{label}")
+def build_block_kernel(src: str, label: str, key: str = "nw"):
+    """Build a version of ``{key}.cu`` (nw or gap) with the
+    block-per-problem kernels' C interface (an int8 (B, N, M) direction
+    scratch) and return a launcher of it."""
+    lib = build_other(src, f"{key}-{label}")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.pintron_nw.restype = I
-    lib.pintron_nw.argtypes = [P, I, P, I, P, P, P, P, P, P, I, P]
+    fn = getattr(lib, f"pintron_{key}")
+    fn.restype = I
+    fn.argtypes = [P, I, P, I, P, P, P, P, P, P, I, P]
 
     def launch(est, elen, gen, glen, *, max_n, max_m):
         B, dev = est.shape[0], est.device
-        score = torch.empty(B, dtype=torch.int32, device=dev)
+        head = torch.empty(B, dtype=torch.int32, device=dev)
         ops = torch.empty((B, max_n + max_m), dtype=torch.int8, device=dev)
         nsteps = torch.empty(B, dtype=torch.int32, device=dev)
         dirs = torch.empty((B, max_n, max_m), dtype=torch.int8, device=dev)
-        err = lib.pintron_nw(
-            est.data_ptr(), max_n, gen.data_ptr(), max_m, elen.data_ptr(),
-            glen.data_ptr(), dirs.data_ptr(), score.data_ptr(),
-            ops.data_ptr(), nsteps.data_ptr(), B,
-            torch.cuda.current_stream().cuda_stream)
+        err = fn(est.data_ptr(), max_n, gen.data_ptr(), max_m,
+                 elen.data_ptr(), glen.data_ptr(), dirs.data_ptr(),
+                 head.data_ptr(), ops.data_ptr(), nsteps.data_ptr(), B,
+                 torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"{label} nw_kernel launch failed: {err}")
-        return score, ops, nsteps
+            raise RuntimeError(f"{label} {key}_kernel launch failed: {err}")
+        return head, ops, nsteps
     return launch
 
 
@@ -194,25 +197,31 @@ def ops_equal(got, want, nsteps) -> bool:
     return bool(torch.equal(got[live], want[live]))
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def measure_main(argv, *, key: str, doc: str, shapes, make_batch,
+                 bound_fn, kernel, plain, build_alt) -> int:
+    """The command line of measure_nw and measure_gap: every launch
+    shape of ``shapes`` made by ``make_batch``, held against ``plain``
+    on every problem and timed with ``kernel`` (this checkout's) and the
+    ``--old`` / ``--alt`` builds in turns; writes the records to
+    ``chiprun_out/{key}_measure.json`` unless ``--out`` says where."""
+    p = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     p.add_argument("--old", action="append", default=[],
-                   metavar="LABEL=NW_CU",
-                   help="a nw.cu with the block-per-problem kernel's C "
+                   metavar=f"LABEL={key.upper()}_CU",
+                   help=f"a {key}.cu with the block-per-problem kernel's C "
                         "interface, timed beside this checkout's kernel")
     p.add_argument("--alt", action="append", default=[],
-                   metavar="LABEL=NW_CU",
-                   help="a nw.cu with this checkout's C interface, timed "
-                        "beside this checkout's kernel")
+                   metavar=f"LABEL={key.upper()}_CU",
+                   help=f"a {key}.cu with this checkout's C interface, "
+                        "timed beside this checkout's kernel")
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
-                                                 "nw_measure.json"))
+                                                 f"{key}_measure.json"))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
-        print("measure_nw: torch.cuda.is_available() is false",
+        print(f"measure_{key}: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    from pintron_tpu_torch.ops import _build, align, traceback
+    from pintron_tpu_torch.ops import _build
     from pintron_tpu_torch.ops.align import from_numpy_batch
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -226,33 +235,35 @@ def main(argv=None) -> int:
     if _build.BUILD_INFO["log"]:
         print(_build.BUILD_INFO["log"].strip(), flush=True)
     olds = []
-    for specs, build in ((args.old, build_block_kernel),
-                         (args.alt, build_warp_kernel)):
+    for specs, build in ((args.old, lambda src, label: build_block_kernel(
+            src, label, key)), (args.alt, build_alt)):
         for spec in specs:
             label, src = spec.split("=", 1)
             olds.append((label, build(src, label)))
     rows = []
     sums = {"plain": 0.0, "bound": 0.0, "chain": 0.0}
-    for i, shape in enumerate(MAIN_PATH_NW_SHAPES):
-        est, elen, gen, glen, N, M = main_path_nw_batch(shape, i)
+    for i, shape in enumerate(shapes):
+        est, elen, gen, glen, N, M = make_batch(shape, i)
         t = from_numpy_batch(est, elen, gen, glen, device=dev)
         kw = dict(max_n=N, max_m=M)
-        want = align.batch_nw_traceback(*t, **kw)
-        got = traceback.batch_nw_traceback_cuda(*t, **kw)
+        want = plain(*t, **kw)
+        got = kernel(*t, **kw)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             if not torch.equal(g, w):
-                raise AssertionError(f"{shape}: nw_kernel != plain")
+                raise AssertionError(f"{shape}: {key}_kernel != plain")
         rec = {"shape": shape, "gpu": gpu}
-        bound, by, chain = nw_bound(elen, glen, clock)
+        bound, by, chain = bound_fn(elen, glen, clock)
         rec.update(bound_ms=bound, bound_by=by, chain_floor_ms=chain)
-        new = lambda: traceback.batch_nw_traceback_cuda(*t, **kw)  # noqa
+        new = lambda: kernel(*t, **kw)  # noqa: E731
         timed = []
         for label, launch in olds:
-            s, o, n = launch(*t, **kw)
+            h, o, n = launch(*t, **kw)
             torch.cuda.synchronize()
-            if not torch.equal(s, want[0]):
-                raise AssertionError(f"{shape}: {label} scores != plain")
+            # the score or start matrix must agree; a build with the walk
+            # compiled out gives no ops
+            if not torch.equal(h, want[0]):
+                raise AssertionError(f"{shape}: {label} != plain")
             rec[f"{label}_ops_equal"] = (torch.equal(n, want[2])
                                          and ops_equal(o, want[1], n))
             timed.append((label, lambda launch=launch: launch(*t, **kw)))
@@ -263,11 +274,10 @@ def main(argv=None) -> int:
             rec.setdefault(f"{label}_ms", []).append(cuda_ms(fn, args.reps))
             rec.setdefault(f"{label}_dev_ms", []).append(
                 device_ms(fn, args.reps))
-        rec["plain_ms"] = cuda_ms(
-            lambda: align.batch_nw_traceback(*t, **kw), 1)
-        for key, v in (("plain", rec["plain_ms"]), ("bound", bound),
-                       ("chain", chain)):
-            sums[key] += v
+        rec["plain_ms"] = cuda_ms(lambda: plain(*t, **kw), 1)
+        for k, v in (("plain", rec["plain_ms"]), ("bound", bound),
+                     ("chain", chain)):
+            sums[k] += v
         for label in ["new"] + [lbl for lbl, _fn in timed]:
             for k in (f"{label}_ms", f"{label}_dev_ms"):
                 sums[k] = sums.get(k, 0.0) + min(rec[k])
@@ -282,6 +292,15 @@ def main(argv=None) -> int:
                    "shapes": rows}, f, indent=1)
     print(f"wrote {args.out}")
     return 0
+
+
+def main(argv=None) -> int:
+    from pintron_tpu_torch.ops import align, traceback
+    return measure_main(
+        argv, key="nw", doc=__doc__, shapes=MAIN_PATH_NW_SHAPES,
+        make_batch=main_path_nw_batch, bound_fn=nw_bound,
+        kernel=traceback.batch_nw_traceback_cuda,
+        plain=align.batch_nw_traceback, build_alt=build_warp_kernel)
 
 
 if __name__ == "__main__":

@@ -112,7 +112,8 @@ def load():
         lib.pintron_nw.restype = I
         lib.pintron_nw.argtypes = [P, I, P, I, P, P, P, P, P, P, P, I, P]
         lib.pintron_gap.restype = I
-        lib.pintron_gap.argtypes = [P, I, P, I, P, P, P, P, P, P, I, P]
+        lib.pintron_gap.argtypes = [P, I, P, I, P, P, P, P, P, P, P, P, I, I,
+                                     P]
         lib.pintron_rowmin.restype = I
         lib.pintron_rowmin.argtypes = [P, I, P, I, P, P, P, P, I, I, P]
         lib.pintron_pwm.restype = I

@@ -23,8 +23,9 @@ from pintron_tpu_torch.ops import align
 from pintron_tpu_torch.ops.kband import (_check_batch, _count,
                                          _cuda_launch_context)
 
-# widest DP row a kernel takes: 512 threads x 32 columns each for gap
-# and rowmin (csrc/rowscan.cuh); nw keeps the same limit
+# widest DP row a kernel takes: 512 threads x 32 columns each for rowmin
+# (csrc/rowscan.cuh); the warp-per-problem nw and gap kernels keep the
+# same limit
 MAX_WIDTH = 16384
 
 
@@ -48,6 +49,31 @@ def nw_scratch(B: int, max_n: int, max_m: int, device):
             torch.empty((B, max_m + 1), dtype=torch.int32, device=device))
 
 
+def gap_rows(max_n: int) -> int:
+    """The est rows a lane of gap_kernel holds (csrc/gap.cu), from the
+    est bucket: 2 while the bucket's rows fit one pass of 32 lanes, so
+    that every lane of a 60-row window holds rows, else 16."""
+    return 2 if max_n <= 64 else 16
+
+
+def gap_scratch(B: int, max_n: int, max_m: int, device, rows: int):
+    """gap_kernel's scratch for ``rows`` (R) est rows a lane: the
+    direction planes, (B, passes, max_m, lanes a pass) words, at R = 2
+    one 16-bit word holding the 5 bits of each row and an empty second
+    plane, at R = 16 a 64-bit word of L's and R's bits and a 16-bit word
+    of G's; and the row buffer that carries a pass's last L and R rows to
+    the next, empty when one pass of 32R rows covers the bucket."""
+    shape = (B, -(-max_n // (32 * rows)), max_m,
+             min(32, -(-max_n // rows)))
+    joint = rows == 2
+    return (torch.empty(shape, dtype=torch.int16 if joint else torch.int64,
+                        device=device),
+            torch.empty((0,) if joint else shape, dtype=torch.int16,
+                        device=device),
+            torch.empty((B, 2, max_m + 1) if max_n > 32 * rows else (0,),
+                        dtype=torch.int32, device=device))
+
+
 def _traceback_cuda(key: str, est, elen, gen, glen, max_n: int,
                     max_m: int):
     """Launch ``{key}_kernel`` (``pintron_{key}`` in the library)."""
@@ -62,15 +88,16 @@ def _traceback_cuda(key: str, est, elen, gen, glen, max_n: int,
         return head, ops, nsteps
     lib, stream = _cuda_launch_context(dev, key)
     if key == "nw":
-        scratch = nw_scratch(B, max_n, max_m, dev)
+        scratch, extra = nw_scratch(B, max_n, max_m, dev), ()
     else:
-        scratch = [torch.empty((B, max_n, max_m), dtype=torch.int8,
-                               device=dev)]
+        rows = gap_rows(max_n)
+        scratch, extra = gap_scratch(B, max_n, max_m, dev, rows), (rows,)
     with torch.cuda.device(dev):
         err = getattr(lib, f"pintron_{key}")(
             est.data_ptr(), max_n, gen.data_ptr(), max_m, elen.data_ptr(),
             glen.data_ptr(), *(t.data_ptr() for t in scratch),
-            head.data_ptr(), ops.data_ptr(), nsteps.data_ptr(), B, stream)
+            head.data_ptr(), ops.data_ptr(), nsteps.data_ptr(), *extra, B,
+            stream)
     if err:
         raise RuntimeError(f"{key}_kernel launch failed: cudaError {err}")
     _count(key)

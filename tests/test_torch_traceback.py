@@ -361,6 +361,202 @@ def test_nw_scratch_is_at_most_the_offloads_cap():
             assert nbytes <= N * M, (N, M)
 
 
+# ---- a numpy model of gap_kernel's warp design -----------------------------
+
+def gap_warp_model(est, elen, gen, glen, *, max_n, max_m, R):
+    """numpy model of gap_kernel, all problems at once, one warp of 32
+    lanes each: passes of 32 * R est rows, lane l holding rows
+    l*R+1 .. l*R+R of a pass; step s of a pass computes column s - l + 1
+    on lane l from its own L, G and R at the previous column, lane l-1's
+    last L and R rows and gen character of one step earlier (lane 0: the
+    gen window and the row buffer), L's and R's left chains and G's
+    running maximum in the lane, each value offset as the kernel keeps
+    it (L + i + j, G + i + j + 1, R + i + j); the 5 direction bits of a
+    lane's column (at R = 2 one word, 5 bits a row; at R = 16 a word of L
+    and R, 4 bits a row, and one of G, a bit a row) at slot
+    (j - 1 + l) mod max_m of the pass, lanes innermost; lane 31 keeping
+    the pass's last L and R rows; then the start matrix and the walk
+    through tiles of 32 / R + 1 strips x 32 columns, the matrix picking
+    the cell's field by a shift and an xor.  Returns (sm, ops,
+    nsteps) as the kernel's wrapper does."""
+    B = len(elen)
+    est, gen = est.astype(np.int64), gen.astype(np.int64)
+    n = np.clip(elen.astype(np.int64), 0, max_n)
+    m = np.clip(glen.astype(np.int64), 0, max_m)
+    P = 32 * R
+    lpp = min(32, -(-max_n // R))
+    lane = np.arange(32)
+    DLR = np.zeros((B, -(-max_n // P), max_m, lpp), dtype=np.int64)
+    DG = np.zeros_like(DLR)
+    topL = np.zeros((B, max_m + 1), dtype=np.int64)
+    topR = np.zeros_like(topL)
+    Lc, Gc, Rc = (np.zeros((B, 32, R), dtype=np.int64) for _ in range(3))
+    bi = np.arange(B)[:, None, None]
+    for p0 in range(0, int(n.max(initial=0)), P):
+        inpass = (m > 0) & (p0 < n)
+        lact = np.minimum(32, (n - p0 + R - 1) // R)
+        keep = p0 + P < n
+        rows = p0 + lane[:, None] * R + np.arange(R)[None, :] + 1  # (32, R)
+        ec = np.where(rows[None] <= n[:, None, None],
+                      est[bi, np.clip(rows - 1, 0, max_n - 1)[None]], 0)
+        ew = _wild(ec)
+        lst = np.where(rows[None] == n[:, None, None], 1, 0)
+        Lc[inpass] = rows
+        Rc[inpass] = rows
+        Gc[inpass] = rows + 1
+        dL = np.broadcast_to(rows[:, 0] - 1, (B, 32)).copy()
+        dR = dL.copy()
+        botL, botR, gch = (np.zeros((B, 32), dtype=np.int64)
+                           for _ in range(3))
+        steps = np.where(inpass, m + lact - 1, 0)
+        for s in range(int(steps.max(initial=0))):
+            j0 = s + 1                      # lane 0's column
+            inj = j0 <= m
+            g0 = np.where(inj, gen[:, min(j0, max_m) - 1], 0)
+            upL, upR = _shfl_up1(botL), _shfl_up1(botR)
+            upL[:, 0] = np.where(inj, topL[:, min(j0, max_m)]
+                                 if p0 else j0, 0)
+            upR[:, 0] = np.where(inj, topR[:, min(j0, max_m)]
+                                 if p0 else j0, 0)
+            gch = _shfl_up1(gch)
+            gch[:, 0] = g0
+            j = s - lane + 1
+            act = ((lane[None] < lact[:, None]) & (j[None] >= 1)
+                   & (j[None] <= m[:, None]) & inpass[:, None])
+            wg = _wild(gch)
+            pL, pR, uL, uR = dL, dR, upL, upR
+            wlr = np.zeros((B, 32), dtype=np.int64)
+            wgb = np.zeros((B, 32), dtype=np.int64)
+            nL, nG, nR = Lc.copy(), Gc.copy(), Rc.copy()
+            for r in range(R):
+                ms2 = np.where((gch == ec[:, :, r]) | wg | ew[:, :, r], 3, 1)
+                lc, gc, rc = Lc[:, :, r], Gc[:, :, r], Rc[:, :, r]
+                diagL = pL + ms2
+                lv = np.maximum(np.maximum(diagL, uL), lc)
+                ld = np.where(lv == diagL, 0, np.where(lv == uL, 1, 2))
+                gd = np.where(gc < lc + 1, 0, 1)
+                diagR, leftR = pR + ms2, rc + lst[:, :, r]
+                rv = np.maximum(np.maximum(diagR, uR), np.maximum(gc, leftR))
+                rd = np.where(rv == diagR, 0, np.where(
+                    rv == leftR, 2, np.where(rv == gc, 3, 1)))
+                if R == 2:
+                    wlr |= (ld | (rd << 2) | (gd << 4)) << (5 * r)
+                else:
+                    wlr |= (ld | (rd << 2)) << (4 * r)
+                    wgb |= gd << r
+                pL, pR, uL, uR = lc, rc, lv, rv
+                nL[:, :, r], nG[:, :, r] = lv, np.maximum(gc, lc + 1) + 1
+                nR[:, :, r] = rv
+            for a, new in ((Lc, nL), (Gc, nG), (Rc, nR)):
+                a[...] = np.where(act[:, :, None], new, a)
+            botL = np.where(act, Lc[:, :, R - 1], botL)
+            botR = np.where(act, Rc[:, :, R - 1], botR)
+            dL, dR = np.where(act, upL, dL), np.where(act, upR, dR)
+            bb, ll = np.nonzero(act)
+            DLR[bb, p0 // P, s % max_m, ll] = wlr[bb, ll]
+            DG[bb, p0 // P, s % max_m, ll] = wgb[bb, ll]
+            wr = act[:, 31] & keep
+            topL[wr, j[31]] = botL[wr, 31]
+            topR[wr, j[31]] = botR[wr, 31]
+    strips = 32 // R + 1
+    T = max_n + max_m
+    sm = np.full(B, 2, dtype=np.int32)
+    ops = np.zeros((B, T), dtype=np.int8)
+    nsteps = np.zeros(B, dtype=np.int32)
+    for b in range(B):
+        if n[b] and m[b]:
+            last = (n[b] - 1) // P * P
+            at = ((n[b] - 1 - last) // R, (n[b] - 1) % R)
+            lf, gf, rf = Lc[b][at], Gc[b][at] - 1, Rc[b][at]
+            sm[b] = (2 if rf >= lf else 0) if rf >= gf else \
+                (1 if gf >= lf else 0)
+        i, j, s, mat = int(n[b]), int(m[b]), 0, int(sm[b])
+        while i > 0 and j > 0:
+            st = (i - 1) // R
+            tlr = np.zeros((strips, 32), dtype=np.int64)
+            tg = np.zeros_like(tlr)
+            for q in range(strips):
+                for ln in range(32):
+                    c = j - ln
+                    if st - q >= 0 and c >= 1:
+                        sq = st - q
+                        at = (b, sq // 32, (c - 1 + sq % 32) % max_m, sq % 32)
+                        tlr[q, ln], tg[q, ln] = DLR[at], DG[at]
+            i_lo, j_lo, j0 = max((st - strips + 1) * R, 0), max(j - 32, 0), j
+            while i > i_lo and j > j_lo:
+                q, rr = st - (i - 1) // R, (i - 1) % R
+                cell = ((tlr[q, j0 - j] >> (5 * rr)) & 31 if R == 2 else
+                        ((tlr[q, j0 - j] >> (4 * rr)) & 15)
+                        | (((tg[q, j0 - j] >> rr) & 1) << 4))
+                sh, mask = (4, 1) if mat == 1 else (mat, 3)
+                d = int((cell >> sh) & mask) ^ (3 if mat == 1 else 0)
+                ops[b, s] = d
+                s += 1
+                i -= d <= 1
+                j -= d != 1
+                mat -= d == 3
+        nsteps[b] = s
+    return sm, ops, nsteps
+
+
+def gap_model_cases(seed, long_len):
+    """gap_cases plus the model's edges: an est longer than a pass of 32
+    lanes' strips (``long_len``) against its gen with an intron, an
+    all-wildcard est, one row and one column, e == g, and both sides
+    empty."""
+    rng = np.random.default_rng(seed)
+    e = "".join(rng.choice(ACGT, long_len))
+    cut = long_len // 3
+    g = _mutate(rng, e[:cut] + "".join(rng.choice(ACGT, 90)) + e[cut:],
+                long_len // 30)
+    wild = "".join(rng.choice(WILD, 40))
+    return gap_cases(seed, count=20) + [
+        (e, g), (e, e), (e[:long_len // 2], g), (wild, g[:120]), (e, "A"),
+        ("C", g), ("N" * 30, "ACGTACGT"), ("G", "G"), ("", g), (e, "")]
+
+
+@pytest.mark.parametrize("R,long_len", [(2, 150), (16, 560)])
+def test_gap_warp_model_matches_plain_and_jax(R, long_len):
+    """The warp design's decomposition (lanes x row strips x skewed
+    column sweep, three matrices with the left chains and G's running
+    maximum in the lane, passes through the row buffer, the two
+    direction planes at their skewed slots, the tiled walk) gives the
+    plain version's and the JAX op's start matrix, ops and step counts
+    on every problem; R = 2 is the kernel's for the (64, 256) bucket
+    and R = 16 its long-est instance, each with an est of two passes."""
+    jalign = pytest.importorskip("pintron_tpu.ops.align")
+    s1, l1, s2, l2 = encode(gap_model_cases(80 + R, long_len), pad=3)
+    N, M = s1.shape[1], s2.shape[1]
+    assert l1.max() > 32 * R and (l1 == 0).any() and (l2 == 0).any()
+    sm, ops, nsteps = (t.numpy() for t in align.batch_gap_traceback(
+        *_torch(s1, l1, s2, l2), max_n=N, max_m=M))
+    sm_j, ops_j, n_j = jalign.decode_gap_fused(
+        jalign.batch_gap_traceback(s1, l1, s2, l2, max_n=N, max_m=M), N + M)
+    np.testing.assert_array_equal(sm, sm_j)
+    np.testing.assert_array_equal(nsteps, n_j)
+    got = gap_warp_model(s1, l1, s2, l2, max_n=N, max_m=M, R=R)
+    np.testing.assert_array_equal(got[0], sm)
+    np.testing.assert_array_equal(got[1], ops)
+    np.testing.assert_array_equal(got[2], nsteps)
+    for b in range(len(l1)):
+        np.testing.assert_array_equal(got[1][b, :n_j[b]], ops_j[b, :n_j[b]])
+
+
+def test_gap_scratch_is_at_most_the_offloads_cap():
+    """gap_kernel's scratch (the two direction planes and the row
+    buffer) stays within the N * M bytes a problem the offload's
+    sub-batching (offload.SCRATCH_BYTES) counts for every bucket it
+    forms, at the rows a lane the wrapper picks; R = 2 for the (64,
+    256) bucket of STEP 2's gap launches."""
+    assert traceback.gap_rows(64) == 2 and traceback.gap_rows(256) == 16
+    for N in (16, 64, 256, 1024, 4096, 16384):
+        for M in (16, 64, 256, 1024, 4096, 16384):
+            R = traceback.gap_rows(N)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in traceback.gap_scratch(1, N, M, "meta", R))
+            assert nbytes <= N * M, (N, M)
+
+
 # ---- wrappers ---------------------------------------------------------------
 
 WRAPPERS = [
@@ -461,6 +657,26 @@ def test_traceback_kernels_match_plain_on_card(cuda_device, name, wrapper,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("est_len,gen_len", [(30, 16), (100, 20), (64, 31)])
+def test_gap_kernel_narrow_gen_windows_on_card(cuda_device, est_len,
+                                               gen_len):
+    """gen windows narrower than a warp, where the walk's tile slots
+    wrap more than once (R = 2 and R = 16), equal the plain version."""
+    rng = np.random.default_rng(est_len + gen_len)
+    pairs = [("".join(rng.choice(WILD, int(rng.integers(0, est_len + 1)))),
+              "".join(rng.choice(ACGT, int(rng.integers(0, gen_len + 1)))))
+             for _ in range(40)] + [("A" * est_len, "A" * gen_len)]
+    s1, l1, s2, l2 = encode(pairs)
+    args = _torch(s1, l1, s2, l2, device=cuda_device)
+    kw = dict(max_n=s1.shape[1], max_m=s2.shape[1])
+    got = traceback.batch_gap_traceback_cuda(*args, **kw)
+    want = align.batch_gap_traceback(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pad", [0, 3000])
 def test_rowmin_kernel_matches_plain_on_card(cuda_device, pad):
     s1, l1, s2, l2 = encode([(g, e) for e, g in gap_cases(62)], pad=pad)
@@ -496,3 +712,24 @@ def test_nw_kernel_main_path_shapes_on_card(cuda_device, index):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert kband.LAUNCHES["nw"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(8))
+def test_gap_kernel_main_path_shapes_on_card(cuda_device, index):
+    """gap_kernel at the 8 launch shapes STEP 2 gives it (measure_gap's,
+    all in the (64, 256) bucket at R = 2 rows a lane), equal to the
+    plain version on every problem."""
+    from pintron_tpu_torch.measure_gap import (MAIN_PATH_GAP_SHAPES,
+                                               main_path_gap_batch)
+    est, elen, gen, glen, N, M = main_path_gap_batch(
+        MAIN_PATH_GAP_SHAPES[index], index)
+    assert traceback.gap_rows(N) == 2
+    args = _torch(est, elen, gen, glen, device=cuda_device)
+    before = kband.LAUNCHES["gap"]
+    got = traceback.batch_gap_traceback_cuda(*args, max_n=N, max_m=M)
+    want = align.batch_gap_traceback(*args, max_n=N, max_m=M)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kband.LAUNCHES["gap"] == before + 1
