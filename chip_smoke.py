@@ -15,15 +15,17 @@ failure (so the script exits non-zero and never prints its last line):
      12 launch shapes STEP 2 gives kband_kernel on TP53 and issue-13
      (pintron_tpu_torch.measure_kband), budgets of 257 to 512 on
      kband_kernel against the plain version and edit_score_kernel's
-     verdicts, both timed on 9 kb exons, the 21 launch shapes STEP 2
-     gives nw_kernel (pintron_tpu_torch.measure_nw) and the 8 it gives
-     gap_kernel (pintron_tpu_torch.measure_gap), the shape the loci
-     give rowmin_kernel, and pwm_kernel bit for bit
-     on seeded windows (N bases, codes outside 0..3, B = 1 and B not a
-     multiple of 32, the issue-13 sweep's shape (8425, 12)); times of
-     both (CUDA events) at the shapes the main path gives them,
-     edit_score_kernel's at the STEP 4 shape (256, 16, 16), each beside
-     its bound, and the F.conv1d yardstick beside pwm_kernel;
+     verdicts, both timed on four 9 kb exons (edit_score_kernel at full
+     length, against its plain version too), the 21 launch shapes STEP
+     2 gives nw_kernel (pintron_tpu_torch.measure_nw), the 8 it gives
+     gap_kernel (pintron_tpu_torch.measure_gap) and the 24 it gives
+     rowmin_kernel (pintron_tpu_torch.measure_rowmin; rowmin on its
+     live rows), and pwm_kernel bit for bit on seeded windows (N bases,
+     codes outside 0..3, B = 1 and B not a multiple of 32, the issue-13
+     sweep's shape (8425, 12)); times of each (CUDA events) at the
+     shapes the main path gives it, edit_score_kernel's at the STEP 4
+     shape (256, 16, 16), each beside its bound, and the F.conv1d
+     yardstick beside pwm_kernel;
   4. the main path, STEP 2 (est-fact): the port's run_est_fact on the
      TP53 and issue-13 loci with every DP family on the card,
      byte-compared with tests/golden/; the kernel launch counters are
@@ -58,15 +60,16 @@ its largest difference from the plain version, its time, the plain
 version's, its bound (the larger of its bytes over the HBM rate and its
 operations over the peak rate of their type, from this run's inputs),
 what bounds it, and the one PyTorch call that computes the same
-function where there is one (F.conv1d for pwm_kernel; null elsewhere; for these two,
-also their times on the card alone, "device_ms" and
-"library_device_ms", as their calls' times are the host's dispatch).
-kband_kernel's, nw_kernel's and gap_kernel's times and bounds are the
-sums over their 12, 21 and 8 main-path shapes.  The floor of the dependent chain of
-each row-serial DP (its longest problem's rows times the least latency
-of a row) is printed on
-the kernel's own lines of phase 3, beside its bound, and kept out of
-the JSON line, which holds only measured numbers and the bound.  Every
+function where there is one (F.conv1d for pwm_kernel; null elsewhere;
+for pwm_kernel also both times on the card alone, "device_ms" and
+"library_device_ms", as its call's time is the host's dispatch).
+kband_kernel's, nw_kernel's, gap_kernel's and rowmin_kernel's times
+and bounds are the sums over their 12, 21, 8 and 24 main-path shapes
+(for the last three also "device_ms", on the card alone).  The floor
+of the dependent chain of each row-serial DP (its longest problem's
+rows times the least latency of a row) is printed on the kernel's own
+lines of phase 3, beside its bound, and kept out of the JSON line,
+which holds only measured numbers and the bound.  Every
 kernel must have been launched by the main path.  The last line is
 {"ok": true, "device": {...}}.
 """
@@ -84,11 +87,12 @@ import numpy as np
 import torch
 
 from pintron_tpu_torch.measure_kband import (HBM_BYTES_PER_S,
-                                             INT32_OPS_PER_S,
-                                             MAIN_PATH_SHAPES, _p4,
+                                             MAIN_PATH_SHAPES,
                                              device_ms, kband_bound,
                                              main_path_batch,
-                                             max_sm_clock_hz)
+                                             max_sm_clock_hz,
+                                             wide_budget_batches)
+from pintron_tpu_torch.measure_rowmin import edit_bound, rowmin_live
 from pintron_tpu_torch.ops.align import from_numpy_batch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -106,12 +110,12 @@ STEP4_KERNELS = ("pwm", "edit_score")
 KERNELS = {
     "kband": ("pintron_tpu_torch/csrc/kband.cu",
               "pintron_tpu/ops/pallas_align.py:67"),
-    "edit_score": ("pintron_tpu_torch/csrc/kband.cu",
+    "edit_score": ("pintron_tpu_torch/csrc/rowmin.cu",
                    "pintron_tpu/ops/align.py:144"),
-    "nw": ("pintron_tpu_torch/csrc/nw.cu", "pintron_tpu/ops/align.py:241"),
+    "nw": ("pintron_tpu_torch/csrc/nw.cu", "pintron_tpu/ops/align.py:242"),
     "gap": ("pintron_tpu_torch/csrc/gap.cu", "pintron_tpu/ops/align.py:354"),
     "rowmin": ("pintron_tpu_torch/csrc/rowmin.cu",
-               "pintron_tpu/ops/align.py:176"),
+               "pintron_tpu/ops/align.py:177"),
     "pwm": ("pintron_tpu_torch/csrc/pwm.cu", "pintron_tpu/ops/pwm.py:48"),
 }
 
@@ -126,15 +130,6 @@ def bound(nbytes, ops, ops_per_s):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def row_floor_ms(rows, width, clock_hz):
-    """The dependent chain of a row-serial DP: ``rows`` rows, each at
-    least ceil(log2 width) + 2 dependent integer operations (the
-    candidates' minimum, then a prefix-min of depth log2 width) of 4
-    cycles at the card's highest SM clock."""
-    width = max(int(width), 2)
-    return rows * (int(np.ceil(np.log2(width))) + 2) * 4 / clock_hz * 1e3
 
 
 def card_line() -> str:
@@ -267,84 +262,78 @@ def phase_traceback_kernels(dev, gpu, clock):
         errs[name] = max(errs[name], compare_all(
             name, kernel(*args, **kw), plain(*args, **kw)))
 
-    def run_rowmin(B, N, M, reps=0):
+    def run_rowmin(B, N, M):
         # (text, pattern) = (gen, est) windows, rows past len2 unspecified
         est, elen, gen, glen = from_numpy_batch(
             *random_pair_batch(rng, B, M, N), device=dev)
         args, kw = (gen, glen, est, elen), dict(max_rows=M)
-        live = (torch.arange(M + 1, device=dev)[None, :]
-                <= elen[:, None].long())
         errs["rowmin"] = max(errs["rowmin"], compare_all(
             "rowmin", traceback.batch_edit_rowmin_cuda(*args, **kw),
-            align.batch_edit_rowmin(*args, **kw), live))
-        if reps:
-            ms = cuda_ms(lambda: traceback.batch_edit_rowmin_cuda(*args,
-                                                                  **kw), reps)
-            pms = cuda_ms(lambda: align.batch_edit_rowmin(*args, **kw), 2)
-            # bytes: text, pattern and lengths in, (value, column) int32
-            # pairs of rows 0..len2 out; 8 operations a cell
-            tl = glen.cpu().numpy().astype(np.int64)
-            pl = elen.cpu().numpy().astype(np.int64)
-            b_ms, by = bound(int((tl + pl).sum()) + 8 * B
-                             + 8 * int((pl + 1).sum()),
-                             8 * int(((tl + 1) * (pl + 1)).sum()),
-                             INT32_OPS_PER_S)
-            chain = max(row_floor_ms(int(p), int(t) + 1, clock)
-                        for t, p in zip(tl, pl))
-            times["rowmin"] = (ms, pms, b_ms, by, chain)
-            print(f"rowmin (B, text, rows) = ({B}, {N}, {M}): kernel "
-                  f"{ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms:.5f} ms "
-                  f"({by}), chain floor {chain:.5f} ms  [{gpu}]",
-                  flush=True)
+            align.batch_edit_rowmin(*args, **kw), rowmin_live(elen, M)))
 
-    # edge cases: odd widths, one column per thread and up to 32, the
-    # widest row a kernel takes; ests of one pass and of several, the
-    # last pass of a few rows; gen windows narrower than a warp
+    # edge cases: odd widths, the widest row a kernel takes; ests and
+    # patterns of one pass and of several, the last pass of a few rows;
+    # gen windows and texts narrower than a warp
     for B, N, M in ((37, 24, 37), (100, 64, 256), (33, 300, 1000),
                     (5, 2000, 9000), (3, 40, 16384), (9, 530, 700),
                     (40, 30, 16), (10, 100, 20)):
         run_tb("nw", B, N, M)
         run_tb("gap", B, N, M)
-    for B, N, M in ((37, 37, 24), (50, 1024, 64), (7, 16384, 40)):
+    for B, N, M in ((37, 37, 24), (50, 1024, 64), (7, 16384, 40),
+                    (33, 300, 700), (146, 64, 64)):
         run_rowmin(B, N, M)
     print("edge-case batches: nw, gap and rowmin kernels == plain on "
           "every problem", flush=True)
-    # the shapes the loci give the kernels: the 21 NW and the 8 gap
-    # launches of STEP 2 on TP53 and issue-13, the (64, 256) gap bucket
-    # at one random batch of 788, the largest rb batch
-    for key in ("nw", "gap"):
+    # the shapes the loci give the kernels: the 21 NW, the 8 gap and the
+    # 24 rowmin launches of STEP 2 on TP53 and issue-13, and the (64,
+    # 256) gap bucket at one random batch of 788
+    for key in ("nw", "gap", "rowmin"):
         errs[key] = max(errs[key], main_path_launches(key, dev, gpu, clock,
                                                       times))
     run_tb("gap", 788, 64, 256)
-    run_rowmin(146, 64, 64, reps=10)
     return errs, times
 
 
 def main_path_launches(key, dev, gpu, clock, times):
-    """nw_kernel or gap_kernel at the launches STEP 2 gives it on TP53
-    and issue-13 (pintron_tpu_torch.measure_nw's 21, measure_gap's 8),
-    each equal to the plain version on every problem and timed back to
-    back and on the card alone; times[key] gets the sums.  Returns the
-    largest difference from the plain version."""
+    """nw_kernel, gap_kernel or rowmin_kernel at the launches STEP 2
+    gives it on TP53 and issue-13 (pintron_tpu_torch.measure_nw's 21,
+    measure_gap's 8, measure_rowmin's 24), each equal to the plain
+    version on every problem (rowmin: on its live rows) and timed back
+    to back and on the card alone; times[key] gets the sums.  Returns
+    the largest difference from the plain version."""
+    from pintron_tpu_torch.ops import align, traceback
     if key == "nw":
         from pintron_tpu_torch.measure_nw import (
             MAIN_PATH_NW_SHAPES as shapes, main_path_nw_batch as make,
             nw_bound as bound_fn)
-    else:
+    elif key == "gap":
         from pintron_tpu_torch.measure_gap import (
             MAIN_PATH_GAP_SHAPES as shapes, main_path_gap_batch as make,
             gap_bound as bound_fn)
-    from pintron_tpu_torch.ops import align, traceback
-    kernel = getattr(traceback, f"batch_{key}_traceback_cuda")
-    plain = getattr(align, f"batch_{key}_traceback")
+    else:
+        from pintron_tpu_torch.measure_rowmin import (
+            MAIN_PATH_RB_SHAPES as shapes, main_path_rb_batch as make,
+            rb_bound as bound_fn)
+    kernel, plain = ((traceback.batch_edit_rowmin_cuda,
+                      align.batch_edit_rowmin) if key == "rowmin" else
+                     (getattr(traceback, f"batch_{key}_traceback_cuda"),
+                      getattr(align, f"batch_{key}_traceback")))
     total = [0.0, 0.0, 0.0, 0.0, 0.0]
     by_main, err = {}, 0
     for i, shape in enumerate(shapes):
-        est, elen, gen, glen, N, M = make(shape, i)
-        args = from_numpy_batch(est, elen, gen, glen, device=dev)
-        kw = dict(max_n=N, max_m=M)
+        if key == "rowmin":
+            # (text, pattern) as (seq1, seq2), compared on rows 0..len2;
+            # elen and glen name the text and pattern lengths here
+            s1, elen, s2, glen, M = make(shape, i)
+            args = from_numpy_batch(s1, elen, s2, glen, device=dev)
+            kw, N, live = dict(max_rows=M), s1.shape[1], rowmin_live(
+                args[3], M)
+        else:
+            est, elen, gen, glen, N, M = make(shape, i)
+            args = from_numpy_batch(est, elen, gen, glen, device=dev)
+            kw, live = dict(max_n=N, max_m=M), None
         err = max(err, compare_all(key, kernel(*args, **kw),
-                                   plain(*args, **kw)))
+                                   plain(*args, **kw), live))
         ms = cuda_ms(lambda: kernel(*args, **kw), 10)
         dms = device_ms(lambda: kernel(*args, **kw), 10)
         pms = cuda_ms(lambda: plain(*args, **kw), 1)
@@ -358,25 +347,14 @@ def main_path_launches(key, dev, gpu, clock, times):
               f"{pms:.3f} ms, bound {b_ms:.5f} ms ({by}), chain floor "
               f"{chain:.5f} ms  [{gpu}]", flush=True)
     times[key] = (total[0], total[1], total[2],
-                  max(by_main, key=by_main.get), total[3])
+                  max(by_main, key=by_main.get), total[3], None, total[4],
+                  None)
     print(f"{key}: the {len(shapes)} main-path launches == plain on every "
           f"problem; kernel {total[0]:.4f} ms in all, on the card alone "
           f"{total[4]:.4f} ms, plain {total[1]:.3f} ms, bound "
           f"{total[2]:.5f} ms, chain floor {total[3]:.5f} ms  [{gpu}]",
           flush=True)
     return err
-
-
-def edit_score_bound(l1, l2, clock):
-    """edit_score_kernel's bound and chain floor on this batch: both
-    sequences and the lengths in, the distance out; 6 operations a
-    cell of the len1 x len2 DP; len2 rows of len1 + 1 columns."""
-    l1, l2 = l1.astype(np.int64), l2.astype(np.int64)
-    b_ms, by = bound(int((l1 + l2).sum()) + 12 * len(l1),
-                     6 * int((l1 * l2).sum()), INT32_OPS_PER_S)
-    chain = max(row_floor_ms(int(m), int(n) + 1, clock)
-                for n, m in zip(l1, l2))
-    return b_ms, by, chain
 
 
 def phase_kernels(dev, gpu, clock):
@@ -468,32 +446,10 @@ def phase_kernels(dev, gpu, clock):
     pms = cuda_ms(lambda: align.batch_edit_distance_score(*args, **kw), 3)
     print(f"edit_score (B, N, rows) = ({B}, {N}, {M}): kernel {ms:.3f} ms, "
           f"plain {pms:.3f} ms  [{gpu}]", flush=True)
-    errs["kband"] = max(errs["kband"], wide_budgets(dev, gpu))
+    kb_err, edit_err = wide_budgets(dev, gpu)
+    errs["kband"] = max(errs["kband"], kb_err)
+    errs["edit_score"] = max(errs["edit_score"], edit_err)
     return errs, times
-
-
-def wide_budget_batch(rng, B, n_lo, n_hi, ub_lo, ub_hi):
-    """Noisy-exon checks of long exons: len1 in [n_lo, n_hi], a budget
-    ub in [ub_lo, ub_hi] the band does not cover (2ub+1 < len1), len2
-    within ub of len1, seq2 seq1's prefix with ub/2 to 3ub point
-    mutations, so that some verdicts pass and some fail."""
-    alpha = np.frombuffer(b"ACGT", dtype=np.int8)
-    N = max(1024, _p4(n_hi))
-    s1 = alpha[rng.integers(0, 4, (B, N))]
-    len1 = rng.integers(n_lo, n_hi + 1, B).astype(np.int32)
-    band = np.array([rng.integers(ub_lo, min(ub_hi, (n - 2) // 2) + 1)
-                     for n in len1], dtype=np.int32)
-    len2 = (len1 - rng.integers(0, band // 4 + 1)).astype(np.int32)
-    M = _p4(int(len2.max()))
-    s2 = np.zeros((B, M), dtype=np.int8)
-    for b in range(B):
-        m = int(len2[b])
-        row = s1[b, :m].copy()
-        hits = rng.integers(0, m, int(rng.integers(band[b] // 2,
-                                                   3 * band[b])))
-        row[hits] = alpha[rng.integers(0, 4, len(hits))]
-        s2[b, :m] = row
-    return s1, len1, s2, len2, band, M
 
 
 def wide_budgets(dev, gpu):
@@ -501,12 +457,12 @@ def wide_budgets(dev, gpu):
     budget is 3% of their length): kband_kernel at k_max 512 (33 cells
     a lane) equal to the plain version, and edit_score_kernel, the
     full-matrix route such budgets took before, giving the same
-    verdicts; then both timed on four exons of about 9 kb.  Returns the
-    largest difference from the plain version."""
+    verdicts; then both timed on four exons of about 9 kb, where
+    edit_score_kernel runs at full length, equal to its plain version.
+    Returns the largest differences from the plain versions,
+    (kband, edit_score)."""
     from pintron_tpu_torch.ops import align, kband
-    rng = np.random.default_rng(20261017)
-    s1, l1, s2, l2, band, M = wide_budget_batch(rng, 8, 600, 1100, 257,
-                                                512)
+    (s1, l1, s2, l2, band, M), exons = wide_budget_batches()
     kw = dict(max_rows=M, k_max=512)
     err, args = compare("kband", kband.banded_edit_distance_cuda,
                         align.banded_edit_distance,
@@ -524,39 +480,39 @@ def wide_budgets(dev, gpu):
           f"({int(ok_band.sum())} of 8 pass)", flush=True)
 
     # the shape of a real 9 kb exon: budget 3%, about 270
-    s1, l1, s2, l2, band, M = wide_budget_batch(rng, 4, 8800, 9200, 264,
-                                                276)
+    s1, l1, s2, l2, band, M = exons
     args = from_numpy_batch(s1, l1, s2, l2, band, device=dev)
     band_ms = cuda_ms(lambda: kband.banded_edit_distance_cuda(
         *args, max_rows=M, k_max=512), 3)
     dist = kband.banded_edit_distance_cuda(*args, max_rows=M, k_max=512)
-    # edit_score_kernel walks len1 * len2 cells in one thread a problem:
-    # time it at a quarter of the length first, and at the full length
-    # only if that would take at most 5 s
+    # a guard: time edit_score_kernel at a quarter of the length first,
+    # and at the full length only if that would take at most 5 s
     cut = 4
     q = (s1[:, :s1.shape[1] // cut].copy(), l1 // cut,
          s2[:, :M // cut].copy(), l2 // cut)
     qargs = from_numpy_batch(*q, device=dev)
     q_ms = cuda_ms(lambda: kband.batch_edit_distance_score_cuda(
         *qargs, max_rows=M // cut), 1)
-    if q_ms * cut * cut <= 5000:
-        full_ms = cuda_ms(lambda: kband.batch_edit_distance_score_cuda(
-            *args[:4], max_rows=M), 1)
-        full = kband.batch_edit_distance_score_cuda(*args[:4], max_rows=M)
-        if not torch.equal(full <= args[4], dist <= args[4]):
-            raise AssertionError("kband_kernel and edit_score_kernel "
-                                 "verdicts differ on the 9 kb exons")
-        full_txt = f"edit_score_kernel {full_ms:.3f} ms"
-    else:
-        full_txt = (f"edit_score_kernel not run at the full length (a "
-                    f"quarter of it took {q_ms:.3f} ms, so about "
-                    f"{q_ms * cut * cut:.0f} ms)")
+    if q_ms * cut * cut > 5000:
+        raise AssertionError(f"edit_score_kernel took {q_ms:.3f} ms at a "
+                             f"quarter of the 9 kb exons, so about "
+                             f"{q_ms * cut * cut:.0f} ms at full length")
+    full_ms = cuda_ms(lambda: kband.batch_edit_distance_score_cuda(
+        *args[:4], max_rows=M), 3)
+    full = kband.batch_edit_distance_score_cuda(*args[:4], max_rows=M)
+    want = align.batch_edit_distance_score(*args[:4], max_rows=M)
+    edit_err = compare_all("edit_score", (full,), (want,))
+    if not torch.equal(full <= args[4], dist <= args[4]):
+        raise AssertionError("kband_kernel and edit_score_kernel verdicts "
+                             "differ on the 9 kb exons")
+    full_txt = (f"edit_score_kernel at full length {full_ms:.3f} ms, == "
+                f"plain, verdicts equal")
     print(f"budgets of a 9 kb exon (B, len1, ub) = (4, {int(l1.min())}-"
           f"{int(l1.max())}, {int(band.min())}-{int(band.max())}): "
           f"kband_kernel (k_max 512) {band_ms:.3f} ms, {full_txt}; "
           f"edit_score_kernel at a quarter of the lengths {q_ms:.3f} ms  "
           f"[{gpu}]", flush=True)
-    return err
+    return err, edit_err
 
 
 def random_windows(rng, B):
@@ -654,7 +610,7 @@ def phase_stage4_kernels(dev, gpu, clock):
     ms = cuda_ms(lambda: kband.batch_edit_distance_score_cuda(*args, **kw),
                  50)
     pms = cuda_ms(lambda: align.batch_edit_distance_score(*args, **kw), 10)
-    b_ms, by, chain = edit_score_bound(batch[1], batch[3], clock)
+    b_ms, by, chain = edit_bound(batch[1], batch[3], clock)
     times["edit_score"] = (ms, pms, b_ms, by, chain)
     print(f"edit_score (B, N, rows) = ({B}, {N}, {M}), the STEP 4 shape: "
           f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.6f} ms "

@@ -1,20 +1,19 @@
-// Hand-written Hopper (sm_90a) kernels for the K-band family of the
+// Hand-written Hopper (sm_90a) kernel for the K-band family of the
 // est-fact (STEP 2) device offload.
 //
 // kband_kernel replaces the Pallas TPU kernel
 //   ops/pallas_align.py::_kband_kernel of the JAX package
-//   (launched by banded_edit_distance_pallas),
-// and edit_score_kernel replaces the XLA op
-//   ops/align.py::batch_edit_distance_score of the JAX package,
-// which the offload uses for the K-band problems whose band covers the
-// whole matrix (2*ub+1 >= n).
+//   (launched by banded_edit_distance_pallas).
+// The K-band problems whose band covers the whole matrix (2*ub+1 >= n)
+// or is wider than this kernel takes go to edit_score_kernel
+// (csrc/rowmin.cu).
 //
-// Both compute exactly what the JAX ops compute: the same int32 values,
-// the same sentinel BIG = 1 << 20, the same band and boundary masks, and
-// rows past len2 frozen.  The plain PyTorch versions in
-// pintron_tpu_torch/ops/align.py are their reference.
+// It computes exactly what the Pallas kernel computes: the same int32
+// values, the same sentinel BIG = 1 << 20, the same band and boundary
+// masks, and rows past len2 frozen.  The plain PyTorch version in
+// pintron_tpu_torch/ops/align.py is its reference.
 //
-// What bounds them on this card: each problem is a serial row wavefront
+// What bounds it on this card: each problem is a serial row wavefront
 // with a few integer operations per cell.  Neither the ALUs nor the HBM
 // bandwidth are near their limit (a batch of the loci moves a few MB
 // and does tens of millions of integer operations); the time is the
@@ -56,14 +55,6 @@
 //     offload's length bucket (1024, 4096 and more), so a block of
 //     warps would need up to hundreds of KB, while the warp's W
 //     adjacent bytes a row hit L1 after their first row.
-// edit_score_kernel keeps the design of the first port: one thread per
-// problem (blocks of 128), the DP row in an int32 scratch laid out
-// (N+1, B) so a warp's loads and stores touch neighbouring words, and a
-// row as one ascending in-place walk with the left chain as the serial
-// relaxation run = min(cand, run + 1).  It serves the K-band problems
-// whose band covers the matrix (2*ub+1 >= n, exons of a few bases),
-// the budgets over 512 that kband_kernel does not take (exons over
-// about 17 kb), and STEP 4's edit stats (windows of at most 15 bases).
 // Characters are compared as raw bytes (int8), for equality only.
 
 #include <cstdint>
@@ -73,8 +64,7 @@
 namespace {
 
 constexpr int kBig = 1 << 20;
-constexpr int kThreads = 128;  // edit_score_kernel: one thread a problem
-constexpr int kWarps = 4;      // kband_kernel: one warp a problem
+constexpr int kWarps = 4;  // one warp a problem
 constexpr unsigned kFull = 0xffffffffu;
 
 template <int CPL>
@@ -186,48 +176,9 @@ int launch_kband(const void* seq1, int n_cols, const void* seq2, int m_cols,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void edit_score_kernel(const int8_t* __restrict__ seq1,
-                                  int n_cols,
-                                  const int8_t* __restrict__ seq2,
-                                  int m_cols,
-                                  const int32_t* __restrict__ len1,
-                                  const int32_t* __restrict__ len2,
-                                  int32_t* __restrict__ dp_rows,
-                                  int32_t* __restrict__ out, int batch,
-                                  int max_rows) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  // columns past len1 never reach the final cell M[len2][len1]
-  const int n = min(max(len1[b], 0), n_cols);
-  const int m = len2[b];
-  const int8_t* s1 = seq1 + static_cast<size_t>(b) * n_cols;
-  const int8_t* s2 = seq2 + static_cast<size_t>(b) * m_cols;
-  int32_t* M = dp_rows + b;  // M[c] lives at M[c * batch]
-  const size_t stride = static_cast<size_t>(batch);
-
-  for (int c = 0; c <= n; ++c) M[c * stride] = c;
-
-  const int rows = min(max_rows, m);
-  for (int r = 1; r <= rows; ++r) {
-    const int8_t ch2 = s2[min(r - 1, m_cols - 1)];
-    int diag_src = M[0];  // M_prev[c - 1]
-    int run = r;
-    M[0] = r;
-    for (int c = 1; c <= n; ++c) {
-      const int up_src = M[c * stride];
-      const int cand =
-          min(diag_src + (s1[c - 1] != ch2 ? 1 : 0), up_src + 1);
-      run = min(cand, run + 1);
-      M[c * stride] = run;
-      diag_src = up_src;
-    }
-  }
-  out[b] = M[n * stride];
-}
-
 }  // namespace
 
-// Plain C entry points, loaded with ctypes.  Every pointer is a device
+// Plain C entry point, loaded with ctypes.  Every pointer is a device
 // pointer allocated by the caller; the launch goes on the caller's
 // stream and is not synchronised.  The return value is the
 // cudaGetLastError() of the launch (0 on success).
@@ -265,21 +216,4 @@ extern "C" int pintron_kband(const void* seq1, int n_cols, const void* seq2,
                             out, batch, max_rows, k_max, st);
   return launch_kband<33>(seq1, n_cols, seq2, m_cols, len1, len2, band,
                           out, batch, max_rows, k_max, st);
-}
-
-extern "C" int pintron_edit_score(const void* seq1, int n_cols,
-                                  const void* seq2, int m_cols,
-                                  const void* len1, const void* len2,
-                                  void* dp_rows, void* out, int batch,
-                                  int max_rows, void* stream) {
-  if (batch <= 0) return 0;
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  edit_score_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(seq1), n_cols,
-      static_cast<const int8_t*>(seq2), m_cols,
-      static_cast<const int32_t*>(len1), static_cast<const int32_t*>(len2),
-      static_cast<int32_t*>(dp_rows), static_cast<int32_t*>(out), batch,
-      max_rows);
-  return static_cast<int>(cudaGetLastError());
 }

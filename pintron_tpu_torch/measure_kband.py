@@ -99,6 +99,40 @@ def main_path_batch(shape, seed: int):
     return s1, len1, s2, len2, band, max_rows, k_max
 
 
+def wide_budget_batch(rng, B, n_lo, n_hi, ub_lo, ub_hi):
+    """Noisy-exon checks of long exons: len1 in [n_lo, n_hi], a budget
+    ub in [ub_lo, ub_hi] the band does not cover (2ub+1 < len1), len2
+    within ub of len1, seq2 seq1's prefix with ub/2 to 3ub point
+    mutations, so that some verdicts pass and some fail."""
+    alpha = np.frombuffer(b"ACGT", dtype=np.int8)
+    N = max(1024, _p4(n_hi))
+    s1 = alpha[rng.integers(0, 4, (B, N))]
+    len1 = rng.integers(n_lo, n_hi + 1, B).astype(np.int32)
+    band = np.array([rng.integers(ub_lo, min(ub_hi, (n - 2) // 2) + 1)
+                     for n in len1], dtype=np.int32)
+    len2 = (len1 - rng.integers(0, band // 4 + 1)).astype(np.int32)
+    M = _p4(int(len2.max()))
+    s2 = np.zeros((B, M), dtype=np.int8)
+    for b in range(B):
+        m = int(len2[b])
+        row = s1[b, :m].copy()
+        hits = rng.integers(0, m, int(rng.integers(band[b] // 2,
+                                                   3 * band[b])))
+        row[hits] = alpha[rng.integers(0, 4, len(hits))]
+        s2[b, :m] = row
+    return s1, len1, s2, len2, band, M
+
+
+def wide_budget_batches():
+    """chip_smoke.py's two batches of long exons, seeded: 8 checks at
+    budgets of 257 to 512 (exons of 600 to 1100 bases), then four exons
+    of about 9 kb at budgets of about 270 (3% of their length).  Returns
+    the two batches of wide_budget_batch."""
+    rng = np.random.default_rng(20261017)
+    return (wide_budget_batch(rng, 8, 600, 1100, 257, 512),
+            wide_budget_batch(rng, 4, 8800, 9200, 264, 276))
+
+
 def kband_bound(len1, len2, band, max_rows: int, clock_hz: float):
     """The least time of one launch: (bound ms, "bytes" or "operations",
     chain floor ms).  Bytes: each problem's two sequences, its lengths

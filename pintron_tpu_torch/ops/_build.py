@@ -108,14 +108,16 @@ def load():
         lib.pintron_kband.restype = I
         lib.pintron_kband.argtypes = [P, I, P, I, P, P, P, P, I, I, I, P]
         lib.pintron_edit_score.restype = I
-        lib.pintron_edit_score.argtypes = [P, I, P, I, P, P, P, P, I, I, P]
+        lib.pintron_edit_score.argtypes = [P, I, P, I, P, P, P, P, I, I, I,
+                                           I, P]
         lib.pintron_nw.restype = I
         lib.pintron_nw.argtypes = [P, I, P, I, P, P, P, P, P, P, P, I, P]
         lib.pintron_gap.restype = I
         lib.pintron_gap.argtypes = [P, I, P, I, P, P, P, P, P, P, P, P, I, I,
                                      P]
         lib.pintron_rowmin.restype = I
-        lib.pintron_rowmin.argtypes = [P, I, P, I, P, P, P, P, I, I, P]
+        lib.pintron_rowmin.argtypes = [P, I, P, I, P, P, P, P, P, I, I, I,
+                                       I, P]
         lib.pintron_pwm.restype = I
         lib.pintron_pwm.argtypes = [P, I, P, ctypes.c_float, P, I, P]
         _LIB = lib

@@ -1,10 +1,11 @@
-"""Wrappers of the K-band CUDA kernels (``csrc/kband.cu``).
+"""Wrappers of the K-band CUDA kernel (``csrc/kband.cu``) and of the
+full edit DP's ``edit_score_kernel`` (``csrc/rowmin.cu``).
 
 Counterpart of the JAX package's ``banded_edit_distance_pallas``
 (``ops/pallas_align.py``) and of the XLA ``batch_edit_distance_score``
-(``ops/align.py``) the offload uses for the full-matrix problems.  Same
-arguments and results as the plain versions in
-``pintron_tpu_torch.ops.align``:
+(``ops/align.py``) the offload uses for the full-matrix problems and
+STEP 4's edit stats.  Same arguments and results as the plain versions
+in ``pintron_tpu_torch.ops.align``:
 
   * a batch on the CPU runs the plain version;
   * a batch on a CUDA device launches the kernel, or the call raises.
@@ -43,6 +44,52 @@ def reset_launches() -> None:
 def _count(name: str) -> None:
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+
+
+def edit_layout(max_rows: int) -> tuple:
+    """The layout (R, G) of the edit-row kernels (``csrc/rowmin.cu``)
+    for a row bucket: R pattern rows a lane and G lanes a problem.  The
+    16-row bucket takes (1, 16), two problems a warp, and the 64-row
+    bucket (2, 32), one pass of a warp (of the layouts timed at STEP 2's
+    24 rowmin launches on an H100, measure_rowmin, PERF.md); longer
+    patterns (16, 32), in passes of 512 rows through the row buffer."""
+    if max_rows <= 16:
+        return 1, 16
+    if max_rows <= 64:
+        return 2, 32
+    return 16, 32
+
+
+def edit_rowbuf(B: int, N: int, max_rows: int, layout, device):
+    """The row buffer of the edit-row kernels, (B, N + 1) int32, which
+    carries a pass's last row to the next; None when one pass of R x G
+    rows covers the bucket (the kernel then reads none)."""
+    R, G = layout
+    if max_rows <= R * G:
+        return None
+    return torch.empty((B, N + 1), dtype=torch.int32, device=device)
+
+
+def launch_edit_rows(key: str, seq1, len1, seq2, len2, outs, max_rows: int,
+                     what: str, layout=None, lib=None) -> None:
+    """Launch ``rowmin_kernel`` (key "rowmin", outs (vals, pos)) or
+    ``edit_score_kernel`` ("edit_score", outs (out,)) on a checked batch;
+    a batch off the card raises, naming ``what``.  ``layout`` (default
+    ``edit_layout(max_rows)``) and ``lib`` (default this checkout's
+    library) let measure_rowmin time other layouts and builds."""
+    (B, N), dev = seq1.shape, seq1.device
+    own, stream = _cuda_launch_context(dev, what)
+    lib = lib or own
+    layout = layout or edit_layout(max_rows)
+    rowbuf = edit_rowbuf(B, N, max_rows, layout, dev)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"pintron_{key}")(
+            seq1.data_ptr(), N, seq2.data_ptr(), seq2.shape[1],
+            len1.data_ptr(), len2.data_ptr(),
+            0 if rowbuf is None else rowbuf.data_ptr(),
+            *(t.data_ptr() for t in outs), B, max_rows, *layout, stream)
+    if err:
+        raise RuntimeError(f"{key}_kernel launch failed: cudaError {err}")
 
 
 def _check_batch(seq1, len1, seq2, len2, band=None) -> None:
@@ -116,19 +163,11 @@ def batch_edit_distance_score_cuda(seq1, len1, seq2, len2, *,
     if dev.type == "cpu":
         return align.batch_edit_distance_score(seq1, len1, seq2, len2,
                                                max_rows=max_rows)
-    B, N = seq1.shape
+    B = seq1.shape[0]
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    lib, stream = _cuda_launch_context(dev)
-    dp_rows = torch.empty((N + 1, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.pintron_edit_score(
-            seq1.data_ptr(), N, seq2.data_ptr(), seq2.shape[1],
-            len1.data_ptr(), len2.data_ptr(), dp_rows.data_ptr(),
-            out.data_ptr(), B, max_rows, stream)
-    if err:
-        raise RuntimeError(
-            f"edit_score_kernel launch failed: cudaError {err}")
+    launch_edit_rows("edit_score", seq1, len1, seq2, len2, (out,), max_rows,
+                     "K-band")
     _count("edit_score")
     return out

@@ -1,4 +1,4 @@
-"""Wrappers of the row-parallel CUDA kernels of the NW, gap and
+"""Wrappers of the warp-per-problem CUDA kernels of the NW, gap and
 refine-borders families (``csrc/nw.cu``, ``csrc/gap.cu``,
 ``csrc/rowmin.cu``).
 
@@ -21,11 +21,13 @@ import torch
 
 from pintron_tpu_torch.ops import align
 from pintron_tpu_torch.ops.kband import (_check_batch, _count,
-                                         _cuda_launch_context)
+                                         _cuda_launch_context,
+                                         launch_edit_rows)
 
-# widest DP row a kernel takes: 512 threads x 32 columns each for rowmin
-# (csrc/rowscan.cuh); the warp-per-problem nw and gap kernels keep the
-# same limit
+# the widest DP row (text window, gen window) the rowmin, nw and gap
+# kernels are given: the offload leaves wider problems to the host DPs
+# (its evaluated masks), as the JAX flow does, so that the two flows
+# count the same device problems
 MAX_WIDTH = 16384
 
 
@@ -142,13 +144,7 @@ def batch_edit_rowmin_cuda(seq1, len1, seq2, len2, *, max_rows: int):
     pos = torch.empty_like(vals)
     if B == 0:
         return vals, pos
-    lib, stream = _cuda_launch_context(dev, "rowmin")
-    with torch.cuda.device(dev):
-        err = lib.pintron_rowmin(
-            seq1.data_ptr(), N, seq2.data_ptr(), seq2.shape[1],
-            len1.data_ptr(), len2.data_ptr(), vals.data_ptr(),
-            pos.data_ptr(), B, max_rows, stream)
-    if err:
-        raise RuntimeError(f"rowmin_kernel launch failed: cudaError {err}")
+    launch_edit_rows("rowmin", seq1, len1, seq2, len2, (vals, pos),
+                     max_rows, "rowmin")
     _count("rowmin")
     return vals, pos

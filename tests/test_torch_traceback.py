@@ -1,9 +1,11 @@
 """The NW, gap and refine-borders ops of the port: the plain PyTorch
 versions against the JAX package's XLA ops and the host C DPs
-(``nw_align_run``, ``gap_align_run``, ``edit_matrix``), the kernel
-wrappers' dispatch and input checks, and (on a CUDA card, tests marked
-``cuda``) the hand-written kernels against their plain versions.  Every
-comparison is exact.
+(``nw_align_run``, ``gap_align_run``, ``edit_matrix``), numpy models of
+the kernels' warp layouts (the edit-row sweep that rowmin_kernel and
+edit_score_kernel share among them), the kernel wrappers' dispatch and
+input checks, and (on a CUDA card, tests marked ``cuda``) the
+hand-written kernels against their plain versions.  Every comparison is
+exact.
 
 The JAX comparisons import JAX inside the test, so this file's ``cuda``
 tests run on a GPU machine that has none:
@@ -733,3 +735,325 @@ def test_gap_kernel_main_path_shapes_on_card(cuda_device, index):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert kband.LAUNCHES["gap"] == before + 1
+
+
+# ---- the edit-row sweep of rowmin_kernel and edit_score_kernel -------------
+# csrc/rowmin.cu: one sweep, two epilogues; a numpy model of its layout
+# against the plain ops and the JAX ops, the wrappers' layout, and (on the
+# card) the kernels at the launches the main path gives them
+
+def editrow_model(seq1, len1, seq2, len2, *, max_rows, R, G, rowmin):
+    """numpy model of csrc/rowmin.cu's edit_sweep, every problem at once:
+    G lanes a problem (32 // G problems a warp, which share the warp's
+    loop bounds), passes of G * R pattern rows, lane l holding rows
+    l*R+1 .. l*R+R of a pass; step s of a pass computes column s - l + 1
+    on lane l from its own rows at the previous column, lane l-1's last
+    row of one step earlier (lane 0: the row above the pass, 0 on the
+    first pass and read from the row buffer after it) and the text
+    character passed along the lanes, every value kept as X = M - i - j
+    so that a cell is one three-way minimum; lane G-1 writes the pass's
+    last row to the row buffer.  rowmin keeps each row's (least M - i,
+    first column) pair, replaced on a strict <, and writes rows 0..len2
+    after each pass (the others stay -1); edit_score writes
+    M[rows][len1] from the lane holding row ``rows``.  Returns (vals,
+    pos) or out."""
+    B, N = seq1.shape
+    MC = seq2.shape[1]
+    K = 32 // G
+    Bp = -(-B // K) * K
+    live = np.arange(Bp) < B
+    t = np.zeros((Bp, N), dtype=np.int64)
+    p = np.zeros((Bp, MC), dtype=np.int64)
+    t[:B], p[:B] = seq1, seq2
+    n = np.zeros(Bp, dtype=np.int64)
+    rows = np.zeros(Bp, dtype=np.int64)
+    n[:B] = np.clip(len1, 0, N)
+    rows[:B] = np.clip(len2, 0, max_rows)
+
+    def warp_max(x):
+        return np.repeat(x.reshape(-1, K).max(axis=1), K)
+
+    lane = np.arange(G)
+    bi = np.arange(Bp)[:, None, None]
+    V = np.full((Bp, max_rows + 1), -1, dtype=np.int64)
+    P = np.full_like(V, -1)
+    out = np.full(Bp, -1, dtype=np.int64)
+    V[live, 0] = P[live, 0] = 0
+    out[live & (rows == 0)] = n[live & (rows == 0)]
+    rowbuf = np.zeros((Bp, N + 1), dtype=np.int64)
+    vals, best, arg = (np.zeros((Bp, G, R), dtype=np.int64)
+                       for _ in range(3))
+    prows = warp_max(rows)
+    for p0 in range(0, int(prows.max(initial=0)), G * R):
+        i0 = p0 + lane * R
+        lact = np.clip((rows - p0 + R - 1) // R, 0, G)
+        keep = p0 + G * R < rows
+        first = p0 == 0
+        i = i0[:, None] + np.arange(R)[None, :] + 1            # (G, R)
+        pc = np.where(i[None] <= rows[:, None, None],
+                      p[bi, np.minimum(i, MC)[None] - 1], 0)
+        vals[...] = 0
+        best[...] = 0
+        arg[...] = 0
+        d = np.zeros((Bp, G), dtype=np.int64)
+        bot = np.zeros((Bp, G), dtype=np.int64)
+        tch = np.broadcast_to(np.where(n >= 1, t[:, 0], 0)[:, None],
+                              (Bp, G)).copy()
+        steps = np.where((lact > 0) & (n > 0), n + lact - 1, 0)
+        wsteps = warp_max(steps)
+        for s in range(int(wsteps.max(initial=0))):
+            run = s < wsteps
+            t0 = np.where(s + 1 < n, t[:, min(s + 1, N - 1)], 0)
+            t_in = _shfl_up1(tch)
+            up = _shfl_up1(bot)
+            j0 = s + 1
+            up[:, 0] = 0 if first else np.where(
+                j0 <= n, rowbuf[:, min(j0, N)], 0)
+            j = s - lane + 1
+            act = (run[:, None] & (lane[None] < lact[:, None]) & (j >= 1)
+                   & (j <= n[:, None]))
+            u, dg = up, d
+            new = vals.copy()
+            for r in range(R):
+                v = np.minimum(np.minimum(vals[:, :, r], u),
+                               dg + (tch != pc[:, :, r]) - 2)
+                dg = vals[:, :, r]
+                u = v
+                new[:, :, r] = v
+                y = v + j[None]
+                better = act & (y < best[:, :, r])
+                best[:, :, r] = np.where(better, y, best[:, :, r])
+                arg[:, :, r] = np.where(better, j[None], arg[:, :, r])
+            vals = np.where(act[:, :, None], new, vals)
+            bot = np.where(act, u, bot)
+            d = np.where(act, up, d)
+            w = act[:, G - 1] & keep
+            rowbuf[w, j[G - 1]] = bot[w, G - 1]
+            tch = np.where(run[:, None], np.where(lane == 0, t0[:, None],
+                                                  t_in), tch)
+        for b in np.flatnonzero(live & (lact > 0)):
+            for ln in range(int(lact[b])):
+                for r in range(R):
+                    row = p0 + ln * R + r + 1
+                    if row > rows[b]:
+                        continue
+                    V[b, row] = best[b, ln, r] + row
+                    P[b, row] = arg[b, ln, r]
+                    if row == rows[b]:
+                        out[b] = vals[b, ln, r] + row + n[b]
+    if rowmin:
+        return V[:B], P[:B]
+    return out[:B]
+
+
+def _point_mutate(rng, s, rate):
+    s = np.array(list(s))
+    hits = rng.random(len(s)) < rate
+    s[hits] = rng.choice(ACGT, int(hits.sum()))
+    return "".join(s)
+
+
+def edit_cases(seed, long_pattern):
+    """(text, pattern) pairs with the model's edges: len1 = 0, len2 = 0,
+    both 0 (a padded problem), texts narrower than a warp, repeats that
+    tie a row's minimum at several columns (the first must win), N and
+    bytes >= 128, realistic refine-borders pairs (the pattern inside its
+    text with point mutations), and one pattern of ``long_pattern`` rows
+    (several passes at R = 16)."""
+    rng = np.random.default_rng(seed)
+    cases = [("", "ACGT"), ("ACGT", ""), ("", ""), ("A", "A"),
+             ("ACGTACGT", "T"), ("AAAAAAAAAAAAAAAAAAAA", "AA"),
+             ("ACACACACACACACAC", "CA"), ("GATTACA", "GATTACAGATTACA"),
+             ("NNNN\xe9A", "AN\xe9"), ("TTTTTTTTTT", "GGGG")]
+    for _ in range(31):
+        m = int(rng.integers(1, 31))
+        pat = "".join(rng.choice(ACGT, m))
+        n = int(rng.integers(max(1, m // 2), 61))
+        txt = "".join(rng.choice(ACGT, n))
+        at = int(rng.integers(0, max(n - m, 0) + 1))
+        txt = (txt[:at] + _point_mutate(rng, pat, 0.05) + txt[at:])[:n]
+        cases.append((txt, pat))
+    pat = "".join(rng.choice(ACGT, long_pattern))
+    cases.append(("".join(rng.choice(ACGT, 40)) + _point_mutate(rng, pat, 0.03)
+                  [:long_pattern // 3], pat))
+    cases.append(("".join(rng.choice(ACGT, 7)), pat))
+    return cases
+
+
+def _encode_bytes(pairs, pad):
+    """encode() for strings whose characters are bytes (latin-1)."""
+    N = max(max(len(a) for a, _ in pairs), 1) + pad
+    M = max(max(len(b) for _, b in pairs), 1) + pad
+    s1 = np.zeros((len(pairs), N), dtype=np.uint8)
+    s2 = np.zeros((len(pairs), M), dtype=np.uint8)
+    l1 = np.zeros(len(pairs), dtype=np.int32)
+    l2 = np.zeros(len(pairs), dtype=np.int32)
+    for k, (a, b) in enumerate(pairs):
+        s1[k, :len(a)] = np.frombuffer(a.encode("latin-1"), dtype=np.uint8)
+        s2[k, :len(b)] = np.frombuffer(b.encode("latin-1"), dtype=np.uint8)
+        l1[k], l2[k] = len(a), len(b)
+    return s1.view(np.int8), l1, s2.view(np.int8), l2
+
+
+LAYOUTS = [(1, 16), (2, 32), (16, 32)]  # the library's instances
+
+
+@pytest.mark.parametrize("R,G", LAYOUTS)
+def test_rowmin_model_matches_plain_and_jax(R, G):
+    """The sweep's decomposition with rowmin's epilogue (lanes x row
+    strips x skewed column sweep, the left chain in the lane, passes
+    through the row buffer, two problems a warp at G = 16) gives the
+    plain op's and the JAX op's minima and first argmins on every live
+    row; the long pattern takes 2 passes at R = 16, 2 at (2, 32) and 5
+    at (1, 16)."""
+    jalign = pytest.importorskip("pintron_tpu.ops.align")
+    long_pattern = 560 if R == 16 else 70
+    s1, l1, s2, l2 = _encode_bytes(edit_cases(90 + R + G, long_pattern),
+                                   pad=3)
+    M = s2.shape[1]
+    assert l2.max() > G * R and len(l1) % 2 == 1
+    vals, pos = align.batch_edit_rowmin(*_torch(s1, l1, s2, l2),
+                                        max_rows=M)
+    fused = np.asarray(jalign.batch_edit_rowmin(s1, l1, s2, l2,
+                                                max_rows=M)).astype(np.int64)
+    mv, mp = editrow_model(s1, l1, s2, l2, max_rows=M, R=R, G=G,
+                           rowmin=True)
+    for b in range(len(l1)):
+        live = int(l2[b]) + 1
+        np.testing.assert_array_equal(vals.numpy()[b, :live],
+                                      fused[b, :live])
+        np.testing.assert_array_equal(pos.numpy()[b, :live],
+                                      fused[b, M + 1:M + 1 + live])
+        np.testing.assert_array_equal(mv[b, :live], vals.numpy()[b, :live])
+        np.testing.assert_array_equal(mp[b, :live], pos.numpy()[b, :live])
+
+
+@pytest.mark.parametrize("R,G", LAYOUTS)
+def test_edit_score_model_matches_plain_and_jax(R, G):
+    """The same sweep with edit_score's epilogue, at max_rows under and
+    over the longest pattern (rows past max_rows are not computed),
+    equals the plain op and the JAX op on every problem."""
+    jalign = pytest.importorskip("pintron_tpu.ops.align")
+    long_pattern = 560 if R == 16 else 70
+    s1, l1, s2, l2 = _encode_bytes(edit_cases(70 + R + G, long_pattern),
+                                   pad=2)
+    for max_rows in (s2.shape[1], 25):
+        want = align.batch_edit_distance_score(*_torch(s1, l1, s2, l2),
+                                               max_rows=max_rows).numpy()
+        jax_out = np.asarray(jalign.batch_edit_distance_score(
+            s1, l1, s2, l2, max_rows=max_rows))
+        np.testing.assert_array_equal(want, jax_out)
+        got = editrow_model(s1, l1, s2, l2, max_rows=max_rows, R=R, G=G,
+                            rowmin=False)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_edit_score_model_text_wider_than_16384():
+    """edit_score takes every width (no MAX_WIDTH): a text of 16400
+    columns at the wrappers' layout equals the plain op and the JAX
+    op."""
+    jalign = pytest.importorskip("pintron_tpu.ops.align")
+    rng = np.random.default_rng(77)
+    pat = "".join(rng.choice(ACGT, 12))
+    txt = "".join(rng.choice(ACGT, 16400))
+    pairs = [(txt, pat), (txt[:16390] + pat[::-1], pat), (txt[:3], pat)]
+    s1, l1, s2, l2 = encode(pairs)
+    want = align.batch_edit_distance_score(*_torch(s1, l1, s2, l2),
+                                           max_rows=16).numpy()
+    np.testing.assert_array_equal(want, np.asarray(
+        jalign.batch_edit_distance_score(s1, l1, s2, l2, max_rows=16)))
+    R, G = kband.edit_layout(16)
+    got = editrow_model(s1, l1, s2, l2, max_rows=16, R=R, G=G,
+                        rowmin=False)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_layout_follows_the_row_bucket():
+    """The wrappers' layout: two problems a warp for the 16-row bucket,
+    one pass of a warp for the 64-row bucket, 16 rows a lane beyond; the
+    row buffer is allocated only when one pass does not cover the
+    bucket."""
+    assert kband.edit_layout(0) == kband.edit_layout(16) == (1, 16)
+    assert kband.edit_layout(17) == kband.edit_layout(64) == (2, 32)
+    assert kband.edit_layout(65) == kband.edit_layout(16384) == (16, 32)
+    for max_rows in (0, 1, 16, 64, 256, 512):
+        assert kband.edit_rowbuf(8, 64, max_rows,
+                                 kband.edit_layout(max_rows), "meta") is None
+    buf = kband.edit_rowbuf(8, 64, 1024, kband.edit_layout(1024), "meta")
+    assert buf.shape == (8, 65) and buf.dtype == torch.int32
+    # rowmin keeps the offload's width limit; edit_score has none
+    assert traceback.MAX_WIDTH == 16384
+
+
+def test_edit_score_wrapper_takes_texts_wider_than_16384():
+    """On the CPU the wrapper runs the plain op at any width; the kernel
+    path is not capped either (no width check before the launch)."""
+    s1, l1, s2, l2 = encode([("ACGT" * 4200, "ACGA"), ("", "")])
+    got = kband.batch_edit_distance_score_cuda(*_torch(s1, l1, s2, l2),
+                                               max_rows=4)
+    assert got.tolist() == [4200 * 4 - 4, 0]  # ACGA is a subsequence
+    meta = tuple(x.to("meta") for x in _torch(s1, l1, s2, l2))
+    with pytest.raises(ValueError, match="no K-band kernel"):
+        kband.batch_edit_distance_score_cuda(*meta, max_rows=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(24))
+def test_rowmin_kernel_main_path_launches_on_card(cuda_device, index):
+    """rowmin_kernel at the 24 launches STEP 2 gives it on TP53 and
+    issue-13 (measure_rowmin's), equal to the plain version on every
+    live row."""
+    from pintron_tpu_torch.measure_rowmin import (MAIN_PATH_RB_SHAPES,
+                                                  main_path_rb_batch)
+    s1, l1, s2, l2, M = main_path_rb_batch(MAIN_PATH_RB_SHAPES[index],
+                                           index)
+    args = _torch(s1, l1, s2, l2, device=cuda_device)
+    before = kband.LAUNCHES["rowmin"]
+    got = traceback.batch_edit_rowmin_cuda(*args, max_rows=M)
+    want = align.batch_edit_rowmin(*args, max_rows=M)
+    torch.cuda.synchronize()
+    live = (torch.arange(M + 1, device=cuda_device)[None, :]
+            <= args[3][:, None].long())
+    for g, w in zip(got, want):
+        assert torch.equal(g[live], w[live])
+    assert kband.LAUNCHES["rowmin"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,G", LAYOUTS)
+def test_edit_kernels_every_layout_on_card(cuda_device, R, G):
+    """Both kernels at every layout the library instantiates, on the
+    model's cases (a long pattern of several passes, padded and empty
+    problems, an odd batch), equal to the plain versions."""
+    lib_launch = kband.launch_edit_rows
+    s1, l1, s2, l2 = _encode_bytes(edit_cases(90 + R + G, 1100), pad=3)
+    args = _torch(s1, l1, s2, l2, device=cuda_device)
+    M = s2.shape[1]
+    vals = torch.empty((len(l1), M + 1), dtype=torch.int32,
+                       device=cuda_device)
+    pos = torch.empty_like(vals)
+    out = torch.empty(len(l1), dtype=torch.int32, device=cuda_device)
+    lib_launch("rowmin", *args, (vals, pos), M, "rowmin", (R, G))
+    lib_launch("edit_score", *args, (out,), M, "K-band", (R, G))
+    pv, pp = align.batch_edit_rowmin(*args, max_rows=M)
+    po = align.batch_edit_distance_score(*args, max_rows=M)
+    torch.cuda.synchronize()
+    live = (torch.arange(M + 1, device=cuda_device)[None, :]
+            <= args[3][:, None].long())
+    assert torch.equal(vals[live], pv[live])
+    assert torch.equal(pos[live], pp[live])
+    assert torch.equal(out, po)
+
+
+@pytest.mark.cuda
+def test_edit_score_kernel_nine_kb_exons_on_card(cuda_device):
+    """edit_score_kernel on the four 9 kb exons of the K-band budget
+    checks at full length (16384-row bucket, R = 16, 18 passes), equal
+    to the plain version."""
+    from pintron_tpu_torch.measure_rowmin import nine_kb_exons
+    s1, l1, s2, l2, M = nine_kb_exons()
+    args = _torch(s1, l1, s2, l2, device=cuda_device)
+    got = kband.batch_edit_distance_score_cuda(*args, max_rows=M)
+    want = align.batch_edit_distance_score(*args, max_rows=M)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
