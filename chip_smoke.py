@@ -50,12 +50,31 @@ failure (so the script exits non-zero and never prints its last line):
      differ from golden by the reference's stage-5 hash order, against
      the port's own --device host batch on the same input, byte for
      byte).
+  8. the entry point, pintron_tpu_torch.graft_entry.entry() on the card:
+     the batched scoring step (kband_kernel, pwm_kernel and an int32
+     index_add_) on the JAX entry's example batch, with the counters
+     reset just before and read just after (kband_kernel and pwm_kernel
+     must launch), equal to its plain version on the card and to the
+     step on the CPU (distances and support exactly, scores bit for
+     bit), and timed whole and part by part beside its bound; then
+     parallel.mesh.edge_batch (pairs within their band and over it,
+     repeated intron ids, donor codes outside 0..3), whose support
+     total must be above 0, held to the plain step and the CPU step
+     the same way;
+  9. the device fuzz, pintron_tpu_torch.fuzz_device.run_case on the 9
+     cells of its grid (seeds 4000-4008: genomic 20, 50 and 100 kb by
+     30, 60 and 120 ESTs), STEP 2 on the card in a fresh process
+     against the host path in another, byte for byte, each case's
+     routes (full-matrix K-band launches, the widest band budget, host
+     gap cells, launches) on a line of its own; the launches are the
+     device runs' own counts.
 
 Nothing of the JAX package is imported: the goldens, the port's host
 path and its native C DPs are the references.  Before the last line it
 prints the card line and one JSON object: under "kernels" every
-kernel, with its launches on the main path (STEPs 2 and 4; each path's
-count apart under "launches_by_path"), its launches on the problem mix,
+kernel, with its launches on the main path (STEPs 2 and 4, the entry
+point and the fuzz's device runs; each path's count apart under
+"launches_by_path"), its launches on the problem mix,
 its largest difference from the plain version, its time, the plain
 version's, its bound (the larger of its bytes over the HBM rate and its
 operations over the peak rate of their type, from this run's inputs),
@@ -94,11 +113,11 @@ from pintron_tpu_torch.measure_kband import (HBM_BYTES_PER_S,
                                              wide_budget_batches)
 from pintron_tpu_torch.measure_rowmin import edit_bound, rowmin_live
 from pintron_tpu_torch.ops.align import from_numpy_batch
+from pintron_tpu_torch.regression import STAGE2_ARTIFACTS
+from pintron_tpu_torch.runtime.timing import card_line
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
-STAGE2_FILES = ("raw-multifasta-out.txt", "processed-ests.txt", "megs.txt",
-                "processed-megs.txt", "meg-edges.txt")
 STAGE4_INPUTS = ("genomic.txt", "processed-ests.txt", "out-agree.txt")
 STAGE4_FILES = ("out-after-intron-agree.txt", "predicted-introns.txt")
 # the kernels every locus's STEP 2 launches (edit_score_kernel serves
@@ -130,17 +149,6 @@ def bound(nbytes, ops, ops_per_s):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    lines = [ln.strip() for ln in res.stdout.splitlines() if ln.strip()]
-    if not lines:
-        raise RuntimeError("nvidia-smi reported no GPU")
-    return lines[0]
 
 
 def random_kband_batch(rng, B, n_cols, m_cols, k_max, masked=False):
@@ -773,7 +781,7 @@ def phase_main_path(dev, gpu):
               f"{mix_launches}", flush=True)
         for case, (dt, stats, census, lc) in per_case.items():
             gold, work = works[case]
-            for name in STAGE2_FILES:
+            for name in STAGE2_ARTIFACTS:
                 with open(os.path.join(gold, name), "rb") as f:
                     g = f.read()
                 with open(os.path.join(work, name), "rb") as f:
@@ -971,7 +979,7 @@ def phase_service(dev, gpu):
             "est-fact device flow: ")).split(": ", 1)[1])
         client = json.loads(lines[-1])
         compare_files("test-TP53 (service)", golds["test-TP53"], work,
-                      STAGE2_FILES)
+                      STAGE2_ARTIFACTS)
         if client["cuda_initialized"] or flow["workers"] != 8:
             raise AssertionError(f"service client: {client}, {flow}")
         if report is None or min(report["launches"][k]
@@ -1029,6 +1037,124 @@ def phase_service(dev, gpu):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_entry(dev, gpu, clock):
+    """entry() on the card against the plain step on the card and the
+    step on the CPU; the step and each part timed.  Returns the entry
+    path's launches."""
+    from pintron_tpu_torch.graft_entry import entry
+    from pintron_tpu_torch.measure_kband import (INT32_OPS_PER_S,
+                                                 OPS_PER_CELL)
+    from pintron_tpu_torch.ops import kband, pwm
+    from pintron_tpu_torch.parallel import mesh
+    fn, args = entry(dev)
+    kband.reset_launches()      # the entry path's run starts here
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(kband.LAUNCHES)     # ... and ends here
+    if launches["kband"] != 1 or launches["pwm"] != 1:
+        raise AssertionError(f"entry(): launches {launches}, want one "
+                             "kband_kernel and one pwm_kernel")
+    kw = fn.keywords
+    plain = mesh.plain_alignment_step(*args, **kw)
+    cpu = mesh.alignment_step(*(a.cpu() for a in args), **kw)
+    torch.cuda.synchronize()
+    for name, g, p, c in zip(("dist", "scores", "support"), got, plain, cpu):
+        if not torch.equal(g, p):
+            raise AssertionError(f"entry(): {name} != the plain step's")
+        if not torch.equal(g.cpu(), c):
+            raise AssertionError(f"entry(): {name} != the CPU step's")
+    if not torch.isfinite(got[1]).all():
+        raise AssertionError("entry(): scores not finite")
+    # entry()'s batch has no pair within its band (support all 0): the
+    # edge batch has both verdicts, repeated ids and donor codes outside
+    # 0..3, so the scatter of the kernel's verdicts is held to counts
+    # above 0
+    edge, ekw = mesh.edge_batch()
+    eargs = mesh.to_device(edge, dev)
+    e_got = mesh.alignment_step(*eargs, **ekw)
+    e_plain = mesh.plain_alignment_step(*eargs, **ekw)
+    e_cpu = mesh.alignment_step(*mesh.to_device(edge, "cpu"), **ekw)
+    torch.cuda.synchronize()
+    for name, g, p, c in zip(("dist", "scores", "support"), e_got, e_plain,
+                             e_cpu):
+        if not (torch.equal(g, p) and torch.equal(g.cpu(), c)):
+            raise AssertionError(f"edge batch: {name} != the plain step's "
+                                 "on the card or the CPU step's")
+    edge_support = int(e_got[2].sum())
+    if not 0 < edge_support < len(edge[0]):
+        raise AssertionError(f"edge batch: support total {edge_support}, "
+                             "want both verdicts")
+    est, elen, gen, glen, bands, donor, wpwm, ids = args
+    parts = {
+        "step": lambda: fn(*args),
+        "kband": lambda: kband.banded_edit_distance_cuda(
+            gen, glen, est, elen, bands, max_rows=kw["max_rows"],
+            k_max=kw["k_max"]),
+        "pwm": lambda: pwm.pwm_scores_cuda(donor, wpwm, kw["denominator"]),
+        "index_add": lambda: mesh.intron_support(got[0], bands, ids,
+                                                 kw["n_introns"])}
+    times = {name: {"ms": cuda_ms(f, 50), "device_ms": device_ms(f, 50)}
+             for name, f in parts.items()}
+    plain_ms = cuda_ms(lambda: mesh.plain_alignment_step(*args, **kw), 3)
+    # bytes: each problem's codes, lengths and band, the donor codes, the
+    # weights and the intron ids read once, the three outputs written
+    # once; operations: the band cells at OPS_PER_CELL integer operations
+    # and one compare and add a problem over the INT32 peak, one float32
+    # add a donor base over the float32 peak
+    l1, l2 = glen.cpu().numpy(), elen.cpu().numpy()
+    band = bands.cpu().numpy()
+    B, L = donor.shape
+    rows = np.minimum(l2.astype(np.int64), kw["max_rows"])
+    cells = int((rows * (2 * band.astype(np.int64) + 1)).sum())
+    nbytes = (int(l1.sum()) + int(l2.sum()) + 12 * B + B * L + 16 * L
+              + 8 * B + 4 * B + 4 * B + 4 * kw["n_introns"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ((OPS_PER_CELL * cells + 2 * B) / INT32_OPS_PER_S
+             + B * L / FP32_OPS_PER_S) * 1e3
+    b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+    _b, _by, chain = kband_bound(l1, l2, band, kw["max_rows"], clock)
+    rec = {"alignment_step": {
+        "replaces": "pintron_tpu/parallel/mesh.py:41", "batch": [B, L],
+        "launches": launches, "times": times, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
+        "band_cells": cells, "kband_chain_floor_ms": chain,
+        "support_total": int(got[2].sum()),
+        "edge_support_total": edge_support, "gpu": gpu}}
+    print(f"entry() and the edge batch (support total {edge_support}) on "
+          f"the card == the plain step on the card and the "
+          f"step on the CPU (dist, support exactly; scores bit for bit); "
+          f"launches {launches}; step {times['step']['ms']:.4f} ms (card "
+          f"alone {times['step']['device_ms']:.4f}), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({by}), kband chain "
+          f"floor {chain:.5f} ms  [{gpu}]", flush=True)
+    print(json.dumps(rec), flush=True)
+    return launches
+
+
+def phase_fuzz(gpu, n_cases=9):
+    """The device fuzz's first n_cases cases on the card, each byte for
+    byte the host path's.  Returns the device runs' launches, summed."""
+    from pintron_tpu_torch import fuzz_device
+    launches = {}
+    for seed, gen_len, n_ests in fuzz_device.grid(n_cases):
+        t0 = time.perf_counter()
+        res = fuzz_device.run_case(seed, gen_len, n_ests, "cuda")
+        dt = time.perf_counter() - t0
+        print(f"fuzz seed {seed}, {gen_len} nt x {n_ests} ESTs: "
+              f"{res['detail']} in {dt:.1f} s  [{gpu}]", flush=True)
+        if res["routes"] is not None:
+            print(f"  routes: {fuzz_device.routes_line(res['routes'])}",
+                  flush=True)
+        if not res["ok"]:
+            raise AssertionError(f"fuzz seed {seed}: {res['detail']}")
+        for k, v in res["routes"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"fuzz: {n_cases} cases byte-identical to the host path; "
+          f"device runs' launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1079,6 +1205,12 @@ def main() -> int:
     phase("7. device service: sharded STEP 2 and the batch driver")
     phase_service(dev, gpu)
 
+    phase("8. entry() on the card")
+    entry_launches = phase_entry(dev, gpu, clock)
+
+    phase("9. device fuzz of STEP 2 on random spliced loci")
+    fuzz_launches = phase_fuzz(gpu)
+
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "pintron_tpu" or m.startswith("pintron_tpu.")]
     if jax_pkg:
@@ -1086,7 +1218,9 @@ def main() -> int:
                              f"{jax_pkg[:5]}")
     kernels = []
     for key, (src, replaces) in KERNELS.items():
-        launches = step2[key] + step4[key]
+        by_path = {"step2": step2[key], "step4": step4[key],
+                   "entry": entry_launches[key], "fuzz": fuzz_launches[key]}
+        launches = sum(by_path.values())
         if launches <= 0:
             raise AssertionError(f"{key}_kernel never launched on the "
                                  "main path")
@@ -1096,7 +1230,7 @@ def main() -> int:
         kernels.append({
             "name": f"{key}_kernel", "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
-            "launches_by_path": {"step2": step2[key], "step4": step4[key]},
+            "launches_by_path": by_path,
             "offload_mix_launches": mix_launches[key],
             "max_abs_err": errs[key], "ms": ms, "plain_ms": pms,
             "bound_ms": b_ms, "bound_by": by,

@@ -168,16 +168,6 @@ def run_jobs(jobs, n_jobs: int, device):
     return results
 
 
-def _check_card(device) -> None:
-    """``cuda`` without a card raises here, before a service starts (the
-    service, which owns the card, would fail later and less plainly)."""
-    import torch
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {device}: torch.cuda.is_available() "
-                           "is false")
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pintron-tpu-torch-batch",
                                 description=__doc__.split("\n\n")[0])
@@ -194,7 +184,9 @@ def main(argv=None) -> int:
                         "host path)")
     args = p.parse_args(argv)
     if not offload.is_host(args.device):
-        _check_card(args.device)
+        # cuda without a card raises here, before a service starts (the
+        # service, which owns the card, would fail later and less plainly)
+        offload.check_card(args.device)
 
     jobs = read_manifest(args.manifest)
     cpus = os.cpu_count() or 1

@@ -48,7 +48,6 @@ import argparse
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tarfile
 import tempfile
@@ -57,10 +56,11 @@ from collections import defaultdict
 
 import torch
 
+from pintron_tpu_torch.regression import STAGE2_ARTIFACTS, differing
+from pintron_tpu_torch.runtime.timing import card_line
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
-STAGE2 = ("raw-multifasta-out.txt", "processed-ests.txt", "megs.txt",
-          "processed-megs.txt", "meg-edges.txt")
 CASES = ("test-TP53", "test-issue-13")
 # mode -> (device, PINTRON_EST_WORKERS, through the service)
 MODES = {"cuda": ("cuda", None, False), "cpu": ("cpu", None, False),
@@ -72,13 +72,6 @@ STEP4 = ("out-after-intron-agree.txt", "predicted-introns.txt")
 STEP4_MODES = {"step4-cuda": "cuda", "step4-host": "host"}
 
 
-def _card() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
-
-
 def _fresh_copy(case_dir: str, tmp: str, names) -> str:
     work = tempfile.mkdtemp(dir=tmp)
     for name in names:
@@ -87,11 +80,9 @@ def _fresh_copy(case_dir: str, tmp: str, names) -> str:
 
 
 def _check(case_dir: str, work: str, names, mode: str) -> None:
-    for name in names:
-        with open(os.path.join(case_dir, name), "rb") as g, \
-                open(os.path.join(work, name), "rb") as w:
-            if g.read() != w.read():
-                raise AssertionError(f"{mode}: {name} differs from golden")
+    bad = differing(case_dir, work, names)
+    if bad:
+        raise AssertionError(f"{mode}: {', '.join(bad)} differ from golden")
     shutil.rmtree(work)
 
 
@@ -112,7 +103,7 @@ def _run(case_dir: str, tmp: str, mode: str, service: str) -> float:
     finally:
         os.environ.pop("PINTRON_EST_WORKERS", None)
         os.environ.pop(SERVICE_ENV, None)
-    _check(case_dir, work, STAGE2, mode)
+    _check(case_dir, work, STAGE2_ARTIFACTS, mode)
     return dt
 
 
@@ -259,7 +250,7 @@ def main(argv=None) -> int:
         raise RuntimeError("unset PINTRON_DEVICE (the JAX package's "
                            "switch; the port refuses it)")
     os.environ["PINTRON_FRESH_MEMO"] = "1"
-    gpu = _card()
+    gpu = card_line()
     out = {"gpu": gpu, "torch": torch.__version__, "reps": args.reps,
            "summary": {}, "profile": {}, "workers_trace": {}}
     from pintron_tpu_torch.batch import start_service, stop_service

@@ -92,13 +92,18 @@ def _encode(seqs: Sequence[bytes], width: int, rows: int = 0):
 # and the stage-4 edit stats), PWM windows scored, DP cells computed
 # there; counted as the JAX package counts them, and the same whether a
 # batch runs here or on the service.
+# ``kband_ub_max`` is no count but the widest budget of a K-band problem
+# sent to the band kernel (over 256, ``kband_kernel``'s 33-cells-a-lane
+# instance); the others are sums.
 # Batches of two families run at once (the executor thread's K-band and
 # gap batches beside this thread's NW and rb batches), so the counters
 # are added to under a lock.
 STATS = {"problems": 0, "device_problems": 0, "device_cells": 0,
          "nw_problems": 0, "gap_problems": 0, "rb_problems": 0,
          "edit_problems": 0, "pwm_windows": 0,
-         "batches": 0, "device_runs": 0, "device_timeouts": 0}
+         "batches": 0, "device_runs": 0, "device_timeouts": 0,
+         "kband_ub_max": 0}
+_MAXIMA = ("kband_ub_max",)
 _STATS_LOCK = threading.Lock()
 
 
@@ -109,10 +114,10 @@ def reset_stats() -> None:
 
 
 def tally(**counts: int) -> None:
-    """Add to the STATS counters."""
+    """Add to the STATS counters (raise the maxima)."""
     with _STATS_LOCK:
         for k, n in counts.items():
-            STATS[k] += n
+            STATS[k] = max(STATS[k], n) if k in _MAXIMA else STATS[k] + n
 
 
 _DEVICE = None
@@ -138,6 +143,20 @@ def is_host(device) -> bool:
     return isinstance(device, str) and device == HOST
 
 
+def check_card(device) -> torch.device:
+    """``device`` (``"cuda"``, ``"cuda:N"`` or ``"cpu"``) as a
+    torch.device; a CUDA device raises when no card is available."""
+    if device is None:
+        raise ValueError("device=None: pass 'cuda', 'cuda:N' or 'cpu'")
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device}: torch.cuda.is_available() is "
+                           "false")
+    return device
+
+
 def use_device(device) -> torch.device:
     """Check and select the device of this process's batches
     (``"cuda"``, ``"cuda:N"`` or ``"cpu"``).  ``cuda`` raises when no
@@ -146,15 +165,11 @@ def use_device(device) -> torch.device:
     the service's device must be of the same type."""
     if is_host(device):
         raise ValueError(f"device={HOST!r} has no device batches")
-    device = torch.device(device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    served = service_device()
-    if served is not None:
-        _check_served(served, device)
-    elif device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device}: torch.cuda.is_available() is "
-                           "false")
+    if service_socket() is None:
+        device = check_card(device)
+    else:
+        device = torch.device(device)
+        _check_served(service_device(), device)
     set_device(device)
     return device
 
@@ -343,7 +358,9 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
     tally(device_problems=len(rest),
           device_cells=sum(len(a) * len(b) if _full_matrix(len(a), ub)
                            else len(b) * (2 * ub + 1)
-                           for _, a, b, ub in rest))
+                           for _, a, b, ub in rest),
+          kband_ub_max=max((ub for _, a, _b, ub in rest
+                            if not _full_matrix(len(a), ub)), default=0))
     r = service_eval("kband", [(a, b, ub) for _, a, b, ub in rest],
                      device)
     if r is not None:

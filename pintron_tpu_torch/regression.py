@@ -21,6 +21,7 @@ mismatch.
 from __future__ import annotations
 
 import json
+import os
 import sys
 from typing import Dict, List, Tuple
 
@@ -57,9 +58,23 @@ JSON_PROBES: List[Tuple[str, int]] = (
 )
 
 
+# STEP 2's artifacts that a device run is held to, byte for byte,
+# against the goldens or the host path (processed-megs-info.txt is a
+# log of the run, not a result)
+STAGE2_ARTIFACTS = ("raw-multifasta-out.txt", "processed-ests.txt",
+                    "megs.txt", "processed-megs.txt", "meg-edges.txt")
+
+
 def byte_equal(path1: str, path2: str) -> bool:
     with open(path1, "rb") as a, open(path2, "rb") as b:
         return a.read() == b.read()
+
+
+def differing(dir1: str, dir2: str, names) -> List[str]:
+    """The files of ``names`` whose bytes differ between two
+    directories."""
+    return [n for n in names
+            if not byte_equal(os.path.join(dir1, n), os.path.join(dir2, n))]
 
 
 def _nth_value(path: str, key: str, n: int) -> str:

@@ -7,7 +7,9 @@ Rebuild of the reference's observability layer:
   (my_time.h:100-106, compute-est-fact.c:241-286);
 * event + memory checkpoints `description\\ttime\\tstatm` to
   `info-pid-<pid>.log` (src/util.c:221-268);
-* getrusage summary at exit (util.c:184-208).
+* getrusage summary at exit (util.c:184-208);
+* the card's name and power limit, written beside every device time
+  (``card_line``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import logging
 import os
 import resource
+import subprocess
 import time
 from typing import Dict, Optional
 
@@ -101,3 +104,14 @@ def resource_usage_log(level=logging.INFO) -> None:
     ru = resource.getrusage(resource.RUSAGE_SELF)
     log.log(level, "user time: %.3fs  system time: %.3fs  maxrss: %d kB  "
             "statm: %s", ru.ru_utime, ru.ru_stime, ru.ru_maxrss, _statm())
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    lines = [ln.strip() for ln in r.stdout.splitlines() if ln.strip()]
+    if not lines:
+        raise RuntimeError("nvidia-smi reported no GPU")
+    return lines[0]

@@ -189,7 +189,8 @@ def test_port_alone_reproduces_the_goldens(golden, tmp_path, what, case,
 
 
 def _entry_points():
-    from pintron_tpu_torch import batch, pipeline
+    from pintron_tpu_torch import batch, bench, fuzz_device, pipeline
+    from pintron_tpu_torch.graft_entry import entry
     from pintron_tpu_torch.factorize import classify
     from pintron_tpu_torch.stages import est_fact, intron_agreement
     return {
@@ -202,13 +203,17 @@ def _entry_points():
         "pipeline.main": lambda w: pipeline.main(["--workdir", w]),
         "batch.main":
             lambda w: batch.main(["--manifest", os.path.join(w, "jobs.tsv")]),
+        "entry": lambda w: entry(),
+        "bench.main": lambda w: bench.main([]),
+        "fuzz_device.main": lambda w: fuzz_device.main([]),
     }
 
 
 @pytest.mark.parametrize("entry", ["run_est_fact", "run_intron_agreement",
                                    "precompute_bps_device",
                                    "pintron_pipeline", "pipeline.main",
-                                   "batch.main"])
+                                   "batch.main", "entry", "bench.main",
+                                   "fuzz_device.main"])
 def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """Called with no device argument and no card, every entry point
     raises, before any work and without falling back to the CPU."""
