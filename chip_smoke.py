@@ -68,13 +68,34 @@ failure (so the script exits non-zero and never prints its last line):
      routes (full-matrix K-band launches, the widest band budget, host
      gap cells, launches) on a line of its own; the launches are the
      device runs' own counts.
+ 10. the mesh and the multi-process STEP 2:
+     parallel.mesh.sharded_alignment_step over 1, 2 and 8 shards, all
+     on this card, on entry()'s batch and the edge batch, equal to
+     alignment_step and to the plain step (distances and support
+     exactly, scores within 1e-6), each timed; the offload's K-band
+     route over a mesh, ops.offload._sharded_call over 1, 2, 3 and 8
+     shards on band and full-matrix groups of 50 and 146 problems
+     (kband_kernel and edit_score_kernel at short shards), equal to
+     the unsharded wrapper and the plain op, each timed (comparisons,
+     before the counters are reset); then
+     graft_entry.dryrun_multichip(8): AMBN's STEP 2 over an 8-shard
+     mesh (kband_kernel launched a multiple of 8 times, K-band groups
+     counted in offload.STATS["mesh_batches"]) byte for byte,
+     the pipeline resumed for STEPs 3-8, its finals byte for byte, and
+     STEP 2 over two processes (a gloo group, one device service on
+     the card) byte for byte with the ranks' agreement; the counters
+     are reset just before the sharded steps and read just after the
+     dryrun, the service's launches added.  AMBN's STEP 2 wall with and
+     without the mesh beside it; then KmerIndex.lookup_ranges_device
+     on the card against the numpy lookup_ranges on TP53, timed beside
+     its bound.
 
 Nothing of the JAX package is imported: the goldens, the port's host
 path and its native C DPs are the references.  Before the last line it
 prints the card line and one JSON object: under "kernels" every
 kernel, with its launches on the main path (STEPs 2 and 4, the entry
-point and the fuzz's device runs; each path's count apart under
-"launches_by_path"), its launches on the problem mix,
+point, the fuzz's device runs and the mesh phase; each path's count
+apart under "launches_by_path"), its launches on the problem mix,
 its largest difference from the plain version, its time, the plain
 version's, its bound (the larger of its bytes over the HBM rate and its
 operations over the peak rate of their type, from this run's inputs),
@@ -1037,13 +1058,38 @@ def phase_service(dev, gpu):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def step_bound(args, kw, clock):
+    """The scoring step's bound on this batch: (ms, "bytes" or
+    "operations", bytes, band cells, K-band chain floor ms).  Bytes:
+    each problem's codes, lengths and band, the donor codes, the weights
+    and the intron ids read once, the three outputs written once;
+    operations: the band cells at OPS_PER_CELL integer operations and
+    one compare and add a problem over the INT32 peak, one float32 add a
+    donor base over the float32 peak."""
+    from pintron_tpu_torch.measure_kband import (INT32_OPS_PER_S,
+                                                 OPS_PER_CELL)
+    _est, elen, _gen, glen, bands, donor, _w, _ids = args
+    l1, l2 = glen.cpu().numpy(), elen.cpu().numpy()
+    band = bands.cpu().numpy()
+    B, L = donor.shape
+    rows = np.minimum(l2.astype(np.int64), kw["max_rows"])
+    cells = int((rows * (2 * band.astype(np.int64) + 1)).sum())
+    nbytes = (int(l1.sum()) + int(l2.sum()) + 12 * B + B * L + 16 * L
+              + 8 * B + 4 * B + 4 * B + 4 * kw["n_introns"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ((OPS_PER_CELL * cells + 2 * B) / INT32_OPS_PER_S
+             + B * L / FP32_OPS_PER_S) * 1e3
+    b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+    _b, _by, chain = kband_bound(l1, l2, band, kw["max_rows"], clock)
+    return b_ms, by, nbytes, cells, chain
+
+
 def phase_entry(dev, gpu, clock):
     """entry() on the card against the plain step on the card and the
     step on the CPU; the step and each part timed.  Returns the entry
     path's launches."""
     from pintron_tpu_torch.graft_entry import entry
-    from pintron_tpu_torch.measure_kband import (INT32_OPS_PER_S,
-                                                 OPS_PER_CELL)
     from pintron_tpu_torch.ops import kband, pwm
     from pintron_tpu_torch.parallel import mesh
     fn, args = entry(dev)
@@ -1096,24 +1142,8 @@ def phase_entry(dev, gpu, clock):
     times = {name: {"ms": cuda_ms(f, 50), "device_ms": device_ms(f, 50)}
              for name, f in parts.items()}
     plain_ms = cuda_ms(lambda: mesh.plain_alignment_step(*args, **kw), 3)
-    # bytes: each problem's codes, lengths and band, the donor codes, the
-    # weights and the intron ids read once, the three outputs written
-    # once; operations: the band cells at OPS_PER_CELL integer operations
-    # and one compare and add a problem over the INT32 peak, one float32
-    # add a donor base over the float32 peak
-    l1, l2 = glen.cpu().numpy(), elen.cpu().numpy()
-    band = bands.cpu().numpy()
+    b_ms, by, nbytes, cells, chain = step_bound(args, kw, clock)
     B, L = donor.shape
-    rows = np.minimum(l2.astype(np.int64), kw["max_rows"])
-    cells = int((rows * (2 * band.astype(np.int64) + 1)).sum())
-    nbytes = (int(l1.sum()) + int(l2.sum()) + 12 * B + B * L + 16 * L
-              + 8 * B + 4 * B + 4 * B + 4 * kw["n_introns"])
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ((OPS_PER_CELL * cells + 2 * B) / INT32_OPS_PER_S
-             + B * L / FP32_OPS_PER_S) * 1e3
-    b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                            "operations")
-    _b, _by, chain = kband_bound(l1, l2, band, kw["max_rows"], clock)
     rec = {"alignment_step": {
         "replaces": "pintron_tpu/parallel/mesh.py:41", "batch": [B, L],
         "launches": launches, "times": times, "plain_ms": plain_ms,
@@ -1130,6 +1160,256 @@ def phase_entry(dev, gpu, clock):
           f"floor {chain:.5f} ms  [{gpu}]", flush=True)
     print(json.dumps(rec), flush=True)
     return launches
+
+
+def ambn_step2_s(dev, mesh_n):
+    """Wall seconds of one fresh STEP 2 on AMBN on ``dev``, with
+    PINTRON_TORCH_MESH=mesh_n (1: no mesh); its artifacts against golden."""
+    from pintron_tpu_torch.ops.offload import MESH_ENV
+    from pintron_tpu_torch.stages.est_fact import run_est_fact
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ambn-")
+    old = {k: os.environ.get(k) for k in (MESH_ENV, "PINTRON_FRESH_MEMO")}
+    try:
+        gold = os.path.join(tmp, "gold")
+        unpack_golden("test-AMBN", gold)
+        work = os.path.join(tmp, "w")
+        os.makedirs(work)
+        for fn in ("genomic.txt", "ests.txt"):
+            shutil.copy(os.path.join(gold, fn), work)
+        os.environ.update({MESH_ENV: str(mesh_n), "PINTRON_FRESH_MEMO": "1"})
+        t0 = time.perf_counter()
+        run_est_fact(work, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        compare_files(f"test-AMBN (mesh {mesh_n})", gold, work,
+                      STAGE2_ARTIFACTS)
+        return wall
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def kband_group(rng, route, count):
+    """A K-band group as the offload's _eval_kband_device builds one:
+    ``count`` (a, b, ub) problems of one route (``"band"`` or ``"full"``,
+    the band covering the matrix), a the longer, in the 1024-column
+    bucket, padded to a power of two rows (at least 64).  Returns (the
+    kernel's wrapper, its plain op, the numpy arrays)."""
+    import functools
+    from pintron_tpu_torch.ops import align, offload
+    from pintron_tpu_torch.ops.kband import (banded_edit_distance_cuda,
+                                             batch_edit_distance_score_cuda)
+    items = []
+    for _ in range(count):
+        n = int(rng.integers(16, 60 if route == "full" else 400))
+        a = rng.choice(list(b"ACGT"), n).astype(np.uint8).tobytes()
+        b = bytearray(a[:n - int(rng.integers(0, 4))])
+        for _ in range(int(rng.integers(0, 12))):
+            b[int(rng.integers(0, len(b)))] = int(rng.choice(list(b"ACGT")))
+        ub = (n + 1) // 2 if route == "full" else int(rng.integers(3, 12))
+        items.append((a, bytes(b), ub))
+    M = offload._p4(max(len(b) for _a, b, _u in items))
+    Bp = offload._p2(count, lo=64)
+    s1, l1 = offload._encode([a for a, _b, _u in items], 1024, rows=Bp)
+    s2, l2 = offload._encode([b for _a, b, _u in items], M, rows=Bp)
+    if route == "full":
+        return (functools.partial(batch_edit_distance_score_cuda,
+                                  max_rows=M),
+                functools.partial(align.batch_edit_distance_score,
+                                  max_rows=M), [s1, l1, s2, l2])
+    band = np.zeros(Bp, dtype=np.int32)
+    band[:count] = [u for _a, _b, u in items]
+    K = offload._p2(int(band.max()), lo=2)
+    return (functools.partial(banded_edit_distance_cuda, max_rows=M,
+                              k_max=K),
+            functools.partial(align.banded_edit_distance, max_rows=M,
+                              k_max=K), [s1, l1, s2, l2, band])
+
+
+def check_sharded_kband(dev, gpu):
+    """The offload's K-band route over a mesh on the card
+    (offload._sharded_call over 2, 3 and 8 shards on cuda:0): a band
+    group and a full-matrix group of 50 problems (64 rows, 8 a shard
+    at 8) and of 146 (256 rows, split 86/85/85 at 3), each shard's
+    distances from kband_kernel or edit_score_kernel, all equal to the
+    unsharded wrapper's and the plain op's on the card.  Comparisons:
+    run before the mesh path's counters are reset."""
+    from pintron_tpu_torch.ops import offload
+    from pintron_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(10)
+    times = {}
+    for route in ("band", "full"):
+        for count in (50, 146):
+            fn, plain, arrays = kband_group(rng, route, count)
+            args = from_numpy_batch(*arrays, device=dev)
+            want, ref = fn(*args), plain(*args)
+            if not torch.equal(want, ref):
+                raise AssertionError(f"{route} group of {count}: the "
+                                     "wrapper != the plain op")
+            for n in (1, 2, 3, 8):
+                m = make_mesh(n, dev)
+                got = offload._sharded_call(m, fn, arrays)
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"{route} group of {count} over {n} shards: "
+                        f"{int((got != ref).sum())} distances != the "
+                        "unsharded wrapper's and the plain op's")
+                times[f"{route}/{count}/{n}"] = cuda_ms(
+                    lambda: offload._sharded_call(m, fn, arrays), 10)
+    print("offload._sharded_call over 1, 2, 3 and 8 shards on "
+          f"{dev}: band and full-matrix K-band groups of 50 and 146 "
+          "problems == the unsharded wrapper and the plain op; ms a "
+          "call: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f"  [{gpu}]", flush=True)
+    return times
+
+
+def phase_mesh(dev, gpu, clock):
+    """The scoring step over 1, 2 and 8 shards on the card and the AMBN
+    pipeline over an 8-shard mesh and over two processes
+    (dryrun_multichip); then the k-mer lookup on the card.  Returns the
+    mesh path's launches: this process's and the two-process run's
+    service's."""
+    from pintron_tpu_torch.graft_entry import dryrun_multichip, entry
+    from pintron_tpu_torch.ops import kband
+    from pintron_tpu_torch.parallel import mesh
+    fn, args = entry(dev)
+    edge, ekw = mesh.edge_batch()
+    batches = {"entry": (args, fn.keywords),
+               "edge": (mesh.to_device(edge, dev), ekw)}
+    # the references first: their launches are comparisons
+    refs = {name: (mesh.alignment_step(*a, **kw),
+                   mesh.plain_alignment_step(*a, **kw))
+            for name, (a, kw) in batches.items()}
+    steps = {(name, n): mesh.sharded_alignment_step(mesh.make_mesh(n, dev),
+                                                    **kw)
+             for name, (_a, kw) in batches.items() for n in (1, 2, 8)}
+    sharded_ms = check_sharded_kband(dev, gpu)
+    torch.cuda.synchronize()
+    kband.reset_launches()      # the mesh path's run starts here
+    got = {key: step(*batches[key[0]][0]) for key, step in steps.items()}
+    torch.cuda.synchronize()
+    step_launches = dict(kband.LAUNCHES)
+    dry = dryrun_multichip(8, dev)
+    launches = dict(kband.LAUNCHES)     # ... and ends here
+    service = dry["multiprocess"]["service"]["launches"]
+    for k in ("kband", "pwm"):
+        if step_launches[k] != 2 * (1 + 2 + 8):
+            raise AssertionError(f"sharded steps: {k} launched "
+                                 f"{step_launches[k]} times, want 22")
+    for (name, n), out in got.items():
+        for ref, what in zip(refs[name], ("alignment_step",
+                                          "the plain step")):
+            if not (torch.equal(out[0], ref[0])
+                    and torch.equal(out[2], ref[2])):
+                raise AssertionError(f"{name} over {n} shards: dist or "
+                                     f"support != {what}'s")
+            err = float((out[1] - ref[1]).abs().max())
+            if err > 1e-6:
+                raise AssertionError(f"{name} over {n} shards: scores "
+                                     f"{err} from {what}'s")
+    edge_support = int(got[("edge", 8)][2].sum())
+    if edge_support <= 0:
+        raise AssertionError("edge batch over 8 shards: support total 0")
+    times = {f"{name}/{n}": {"ms": cuda_ms(lambda: step(*batches[name][0]),
+                                           20),
+                             "device_ms": device_ms(
+                                 lambda: step(*batches[name][0]), 20)}
+             for (name, n), step in steps.items()}
+    b_ms, by, _nb, _cells, _chain = step_bound(args, fn.keywords, clock)
+    print(f"sharded_alignment_step over 1, 2 and 8 shards on {dev}: entry() "
+          f"and the edge batch (support total {edge_support}) == "
+          f"alignment_step and the plain step (dist, support exactly; "
+          f"scores within 1e-6); launches {step_launches}; ms a call "
+          f"(card alone): " + ", ".join(
+              f"{k} {v['ms']:.4f} ({v['device_ms']:.4f})"
+              for k, v in times.items())
+          + f"; entry()'s bound {b_ms:.6f} ms ({by})  [{gpu}]", flush=True)
+
+    mp = dry["multiprocess"]
+    walls = {"mesh 8 (dryrun)": dry["step2_s"]}
+    for label, n in (("no mesh", 1), ("mesh 8", 8), ("no mesh, again", 1),
+                     ("mesh 8, again", 8)):
+        walls[label] = ambn_step2_s(dev, n)
+    print(f"dryrun_multichip(8) on {dev}: STEP 2, the pipeline's finals "
+          f"and the 2-process run byte-identical to golden; STEP 2 "
+          f"launches {dry['launches']} ({dry['mesh_batches']} K-band "
+          f"groups over the mesh); AMBN STEP 2 wall (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in walls.items())
+          + f"; 2 ranks agree on {mp['global_counts']} and "
+          f"{mp['merged_candidate_introns']} candidate introns; ranks' "
+          f"timing {[r['timing'] for r in mp['ranks']]}; service launches "
+          f"{service}  [{gpu}]", flush=True)
+    print(json.dumps({"mesh": {"step_ms": times, "step_bound_ms": b_ms,
+                               "step_bound_by": by,
+                               "ambn_step2_s": walls,
+                               "step2_launches": dry["launches"],
+                               "step2_mesh_batches": dry["mesh_batches"],
+                               "sharded_call_ms": sharded_ms,
+                               "ranks": mp["ranks"],
+                               "service_launches": service, "gpu": gpu}}),
+          flush=True)
+    phase_kmer(dev, gpu)
+    return {k: launches[k] + service[k] for k in launches}
+
+
+def phase_kmer(dev, gpu):
+    """KmerIndex.lookup_ranges_device on the card against the numpy
+    lookup_ranges: TP53's locus, every 12-mer of its ESTs."""
+    from pintron_tpu_torch.index.kmer import KmerIndex
+    from pintron_tpu_torch.measure_kband import INT32_OPS_PER_S
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-kmer-")
+    try:
+        unpack_golden("test-TP53", tmp)
+        with open(os.path.join(tmp, "genomic.txt")) as f:
+            gen = "".join(f.read().split("\n")[1:]).encode()
+        with open(os.path.join(tmp, "ests.txt")) as f:
+            ests = [ln.strip().encode() for ln in f
+                    if ln.strip() and not ln.startswith(">")]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    idx = KmerIndex(gen, k=12)
+    q = np.concatenate([idx.query_hashes(e) for e in ests])
+    lo, hi = idx.lookup_ranges_device(q, dev)
+    want = idx.lookup_ranges(q)
+    for name, d, h in (("start", lo, want[0]), ("end", hi, want[1])):
+        if not np.array_equal(d.cpu().numpy(), h):
+            raise AssertionError(f"lookup_ranges_device: {name} != numpy")
+    ms = cuda_ms(lambda: idx.lookup_ranges_device(q, dev), 20)
+    h = torch.from_numpy(idx.hashes).to(dev)
+    qd = torch.from_numpy(q).to(dev)
+
+    def search():
+        return (torch.searchsorted(h, qd, side="left"),
+                torch.searchsorted(h, qd, side="right"))
+
+    dev_ms = device_ms(search, 20)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        idx.lookup_ranges(q)
+    plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+    # bytes: the sorted hashes and the queries read once, two int64
+    # ranges written; operations: two binary searches a query, one
+    # compare a level
+    n, m = len(idx.hashes), len(q)
+    b_ms, by = bound(8 * n + 8 * m + 16 * m,
+                     2 * m * int(np.ceil(np.log2(max(n, 2)))),
+                     INT32_OPS_PER_S)
+    rec = {"lookup_ranges_device": {
+        "replaces": "pintron_tpu/index/kmer.py:81", "hashes": n,
+        "queries": m, "ms": ms, "searchsorted_device_ms": dev_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+        "gpu": gpu}}
+    print(f"lookup_ranges_device on {dev} == numpy lookup_ranges on TP53 "
+          f"({n} locus 12-mers, {m} EST 12-mers): {ms:.4f} ms a call with "
+          f"its copies, the two searchsorted {dev_ms:.4f} ms on the card "
+          f"alone, numpy {plain_ms:.3f} ms, bound {b_ms:.6f} ms ({by})  "
+          f"[{gpu}]", flush=True)
+    print(json.dumps(rec), flush=True)
 
 
 def phase_fuzz(gpu, n_cases=9):
@@ -1211,6 +1491,9 @@ def main() -> int:
     phase("9. device fuzz of STEP 2 on random spliced loci")
     fuzz_launches = phase_fuzz(gpu)
 
+    phase("10. mesh and multi-process STEP 2 on the card")
+    mesh_launches = phase_mesh(dev, gpu, clock)
+
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "pintron_tpu" or m.startswith("pintron_tpu.")]
     if jax_pkg:
@@ -1219,7 +1502,8 @@ def main() -> int:
     kernels = []
     for key, (src, replaces) in KERNELS.items():
         by_path = {"step2": step2[key], "step4": step4[key],
-                   "entry": entry_launches[key], "fuzz": fuzz_launches[key]}
+                   "entry": entry_launches[key], "fuzz": fuzz_launches[key],
+                   "mesh": mesh_launches[key]}
         launches = sum(by_path.values())
         if launches <= 0:
             raise AssertionError(f"{key}_kernel never launched on the "

@@ -20,6 +20,12 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+# The name of the file layout SuffixTree.save writes and SuffixTree.load
+# attaches (the <prefix>.ibuf/.bbuf/.leafidx/.text/.meta.npy files).
+# Change it with the layout: a reader that checks it (the ranks of
+# parallel.multihost) then never attaches an index of another layout.
+INDEX_FORMAT = "pintron-gst-flat-v1"
+
 
 class SuffixTree:
     """Suffix tree of ``text`` with a unique terminal (byte 0), built with

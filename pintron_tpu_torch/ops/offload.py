@@ -40,6 +40,7 @@ process never creates a CUDA context.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from typing import List, Sequence, Tuple
@@ -94,7 +95,8 @@ def _encode(seqs: Sequence[bytes], width: int, rows: int = 0):
 # batch runs here or on the service.
 # ``kband_ub_max`` is no count but the widest budget of a K-band problem
 # sent to the band kernel (over 256, ``kband_kernel``'s 33-cells-a-lane
-# instance); the others are sums.
+# instance); the others are sums.  ``mesh_batches`` counts the K-band
+# groups sharded over a mesh of more than one shard (PINTRON_TORCH_MESH).
 # Batches of two families run at once (the executor thread's K-band and
 # gap batches beside this thread's NW and rb batches), so the counters
 # are added to under a lock.
@@ -102,7 +104,7 @@ STATS = {"problems": 0, "device_problems": 0, "device_cells": 0,
          "nw_problems": 0, "gap_problems": 0, "rb_problems": 0,
          "edit_problems": 0, "pwm_windows": 0,
          "batches": 0, "device_runs": 0, "device_timeouts": 0,
-         "kband_ub_max": 0}
+         "mesh_batches": 0, "kband_ub_max": 0}
 _MAXIMA = ("kband_ub_max",)
 _STATS_LOCK = threading.Lock()
 
@@ -321,6 +323,41 @@ def eval_kband(problems: List[Tuple[bytes, bytes, int]]):
                        what="K-band device batch")
 
 
+# ---- the K-band groups over a device mesh ----------------------------------
+# PINTRON_TORCH_MESH=N (N > 1) shards each K-band group, on the band and
+# the full-matrix route, over make_mesh(N) on the batch's device: the
+# per-problem independence axis of the reference (main-est-fact.c:249-291)
+# made explicit across devices.  Each shard launches the same kernel on
+# its contiguous chunk of the group, and the distances come back in
+# order.  The DP is elementwise over problems, so the verdicts equal the
+# unsharded ones.
+# The variable is the port's own: the JAX package's PINTRON_DEVICE_MESH
+# never reaches the port (run_est_fact refuses it).  Inside the device
+# service the service's own environment decides.
+
+MESH_ENV = "PINTRON_TORCH_MESH"
+
+
+def mesh_size() -> int:
+    """The shard count PINTRON_TORCH_MESH asks for (1: no mesh)."""
+    return max(1, int(os.environ.get(MESH_ENV, "0") or 0))
+
+
+def _sharded_call(mesh, fn, arrays):
+    """Run ``fn`` (a K-band wrapper with its static arguments bound) over
+    ``mesh``: every numpy array split into contiguous chunks on its
+    leading (problem) axis, one a shard, on the shard's device
+    (``parallel.mesh.map_shards``).  Returns the per-problem distances in
+    order on the mesh's first device.  A mesh of one shard is the plain
+    call; each call over more adds one to ``STATS["mesh_batches"]``."""
+    from pintron_tpu_torch.parallel.mesh import map_shards
+    if len(mesh.devices) > 1:
+        tally(mesh_batches=1)
+    outs = map_shards(mesh, lambda _dev, *chunk: (fn(*chunk),),
+                      *from_numpy_batch(*arrays, device="cpu"))
+    return torch.cat([d for d, in outs])
+
+
 def _full_matrix(n: int, ub: int) -> bool:
     """A K-band problem goes to the full-matrix kernel when its band
     covers the matrix, or is wider than the band kernel takes (ub >
@@ -383,6 +420,8 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
     # Launch every group before reading any result back: launches are
     # asynchronous, so later groups' host-side encoding overlaps
     # earlier groups' device work.
+    from pintron_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(mesh_size(), device)
     pending = []
     for N, items in sorted(full_groups.items()):
         M = _p4(max(len(b) for _, _, b, _ in items))
@@ -390,9 +429,8 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
         s1, l1 = _encode([a for _, a, _, _ in items], N, rows=Bp)
         s2, l2 = _encode([b for _, _, b, _ in items], M, rows=Bp)
         with torch.profiler.record_function("pintron_kband_full"):
-            r = batch_edit_distance_score_cuda(
-                *from_numpy_batch(s1, l1, s2, l2, device=device),
-                max_rows=M)
+            r = _sharded_call(mesh, functools.partial(
+                batch_edit_distance_score_cuda, max_rows=M), [s1, l1, s2, l2])
         pending.append((items, r))
         tally(batches=1)
 
@@ -405,9 +443,9 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
         band = np.zeros(Bp, dtype=np.int32)
         band[:len(items)] = [ub for _, _, _, ub in items]
         with torch.profiler.record_function("pintron_kband_band"):
-            r = banded_edit_distance_cuda(
-                *from_numpy_batch(s1, l1, s2, l2, band, device=device),
-                max_rows=M, k_max=K)
+            r = _sharded_call(mesh, functools.partial(
+                banded_edit_distance_cuda, max_rows=M, k_max=K),
+                [s1, l1, s2, l2, band])
         pending.append((items, r))
         tally(batches=1)
 

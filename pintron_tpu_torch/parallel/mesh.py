@@ -12,11 +12,19 @@ needed for the scatter.
 On tensors on the CPU the two kernel wrappers run their plain PyTorch
 versions; on a CUDA device they launch the kernels or raise.
 
-Not here yet: ``make_mesh`` and ``sharded_alignment_step``, the step
-sharded over devices (ROADMAP A3).
+``make_mesh`` and ``sharded_alignment_step`` shard the step over the
+``"data"`` axis of a device mesh: contiguous chunks of the batch, one a
+device (``map_shards``, which the offload's K-band route over a mesh
+uses too), and the support summed over the chunks, the counterpart of
+the JAX step's ``psum`` over ``"data"``.  The JAX mesh's ``"seq"`` axis is
+not ported: it serves only a synthetic histogram, and the JAX step
+psums the support over it too, although its inputs are replicated along
+it, so its support comes out multiplied by the ``"seq"`` size.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +58,69 @@ def intron_support(dist, bands, intron_ids, n_introns: int):
     ok = (dist <= bands).to(torch.int32)
     support = torch.zeros(n_introns, dtype=torch.int32, device=dist.device)
     return support.index_add_(0, intron_ids.long(), ok)
+
+
+class Mesh(NamedTuple):
+    """A one-axis (``"data"``) device mesh: shard i of a batch lies on
+    ``devices[i]``."""
+    devices: Tuple[torch.device, ...]
+
+
+def make_mesh(n_data: int, device="cuda") -> Mesh:
+    """A mesh of ``n_data`` shards on ``device``: with ``"cuda"``, shard
+    i lies on ``cuda:(i % k)`` of the k cards (on one card every shard
+    lies on ``cuda:0``); with ``"cuda:N"`` on that card; with ``"cpu"``
+    on the CPU.  ``"cuda"`` raises without a card."""
+    if n_data < 1:
+        raise ValueError(f"n_data={n_data}: a mesh needs a shard")
+    device = check_card(device)
+    if device.type == "cuda" and device.index is None:
+        k = torch.cuda.device_count()
+        return Mesh(tuple(torch.device("cuda", i % k)
+                          for i in range(n_data)))
+    return Mesh((device,) * n_data)
+
+
+def map_shards(mesh: Mesh, fn, *batch):
+    """``fn(device, *chunk)`` on each shard's contiguous chunk of the
+    ``batch`` tensors (``tensor_split`` on the leading axis, no padding),
+    the chunk moved to the shard's device; an empty chunk is skipped.
+    ``fn`` returns a tuple of tensors.  Returns each shard's outputs,
+    moved to the mesh's first device, in shard order."""
+    first = mesh.devices[0]
+    parts = [torch.tensor_split(t, len(mesh.devices)) for t in batch]
+    outs = []
+    for s, dev in enumerate(mesh.devices):
+        chunk = [p[s] for p in parts]
+        if chunk[0].shape[0] == 0:
+            continue
+        outs.append(tuple(r.to(first)
+                          for r in fn(dev, *(c.to(dev) for c in chunk))))
+    return outs
+
+
+def sharded_alignment_step(mesh: Mesh, n_introns: int, *, max_rows: int,
+                           k_max: int, denominator: float):
+    """``alignment_step`` over ``mesh``: returns a callable on the eight
+    tensors of ``to_device`` that runs each shard's step on its chunk of
+    the batch (``map_shards``) and returns ``dist`` and ``scores`` in
+    batch order and ``support`` summed over the shards (integer adds:
+    the same counts in any order), all on the mesh's first device."""
+
+    def step(est_codes, est_lens, gen_codes, gen_lens, bands, donor_idx,
+             weighted_pwm, intron_ids):
+        def shard(dev, *chunk):
+            return alignment_step(*chunk[:6], weighted_pwm.to(dev),
+                                  chunk[6], n_introns, max_rows=max_rows,
+                                  k_max=k_max, denominator=denominator)
+
+        dist, scores, support = zip(*map_shards(
+            mesh, shard, est_codes, est_lens, gen_codes, gen_lens, bands,
+            donor_idx, intron_ids))
+        return (torch.cat(dist), torch.cat(scores),
+                torch.stack(support).sum(0, dtype=torch.int32))
+
+    return step
 
 
 def plain_alignment_step(est_codes, est_lens, gen_codes, gen_lens, bands,

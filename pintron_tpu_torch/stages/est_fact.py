@@ -1882,10 +1882,11 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
     sharded over ``PINTRON_EST_WORKERS`` fork workers (default: one per
     core).  With ``"host"`` the units run on the fork pool of
     ``PINTRON_EST_WORKERS`` workers (sequentially with one)."""
-    if os.environ.get("PINTRON_DEVICE"):
-        raise RuntimeError(
-            "PINTRON_DEVICE is set: it is the JAX package's switch.  Unset "
-            "it; the port selects its device with the `device` argument")
+    for var, use in (("PINTRON_DEVICE", "the `device` argument"),
+                     ("PINTRON_DEVICE_MESH", offload.MESH_ENV)):
+        if os.environ.get(var):
+            raise RuntimeError(f"{var} is set: it is the JAX package's "
+                               f"switch.  Unset it; the port uses {use}")
     host = offload.is_host(device)
     if not host:
         device = offload.use_device(device)
@@ -2011,6 +2012,8 @@ def _run_device(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
             {"device": str(offload.service_device() or device),
              "service": offload.service_socket(),
              "workers": nworkers if sharded else 1,
+             # with a service, the service's own environment decides
+             "mesh": None if offload.service_socket() else offload.mesh_size(),
              "stats": offload.STATS, "launches": kband.LAUNCHES,
              "host_dp_cells": host_cells,
              "device_cell_share": dev_cells / total if total else 0.0},

@@ -190,7 +190,10 @@ def test_port_alone_reproduces_the_goldens(golden, tmp_path, what, case,
 
 def _entry_points():
     from pintron_tpu_torch import batch, bench, fuzz_device, pipeline
-    from pintron_tpu_torch.graft_entry import entry
+    import numpy as np
+    from pintron_tpu_torch.graft_entry import dryrun_multichip, entry
+    from pintron_tpu_torch.index.kmer import KmerIndex
+    from pintron_tpu_torch.parallel import make_mesh, multihost
     from pintron_tpu_torch.factorize import classify
     from pintron_tpu_torch.stages import est_fact, intron_agreement
     return {
@@ -206,6 +209,13 @@ def _entry_points():
         "entry": lambda w: entry(),
         "bench.main": lambda w: bench.main([]),
         "fuzz_device.main": lambda w: fuzz_device.main([]),
+        "dryrun_multichip": lambda w: dryrun_multichip(2),
+        "run_est_fact_multiprocess":
+            lambda w: multihost.run_est_fact_multiprocess(w, 2),
+        "multihost.main": lambda w: multihost.main([w]),
+        "make_mesh": lambda w: make_mesh(2),
+        "lookup_ranges_device": lambda w: KmerIndex(
+            b"ACGT" * 8, k=4).lookup_ranges_device(np.arange(4)),
     }
 
 
@@ -213,7 +223,10 @@ def _entry_points():
                                    "precompute_bps_device",
                                    "pintron_pipeline", "pipeline.main",
                                    "batch.main", "entry", "bench.main",
-                                   "fuzz_device.main"])
+                                   "fuzz_device.main", "dryrun_multichip",
+                                   "run_est_fact_multiprocess",
+                                   "multihost.main", "make_mesh",
+                                   "lookup_ranges_device"])
 def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """Called with no device argument and no card, every entry point
     raises, before any work and without falling back to the CPU."""
