@@ -89,13 +89,30 @@ failure (so the script exits non-zero and never prints its last line):
      without the mesh beside it; then KmerIndex.lookup_ranges_device
      on the card against the numpy lookup_ranges on TP53, timed beside
      its bound.
+ 11. the golden sweep on the card: STEP 2 on the 9 golden loci with
+     inputs (788, AMBN, CPB2, TP53, issue-2, issue-13, mattia1, mattia3,
+     gtf5) through pintron_tpu_torch.tools.check_stage2.check_case,
+     each byte-identical to golden with every family's problems on the
+     card and every STEP 2 kernel launched, one line a locus with its
+     ESTs/s and one with its routes (the widest K-band budget,
+     full-matrix launches, the NW, gap and refine-borders buckets and
+     their passes, the host DP cells beside the device cells); then
+     the 9 through one python -m pintron_tpu_torch.batch --device cuda
+     on one device service (tools.check_batch_sweep.sweep), each
+     locus's finals byte for byte its --device host solo run's and of
+     that run's class against golden (tools.check_e2e.classify_case),
+     none diff; the counters are reset just before the phase and read
+     just after it, the service's launches added, and every STEP 2 and
+     STEP 4 kernel must have launched.
 
 Nothing of the JAX package is imported: the goldens, the port's host
 path and its native C DPs are the references.  Before the last line it
 prints the card line and one JSON object: under "kernels" every
 kernel, with its launches on the main path (STEPs 2 and 4, the entry
-point, the fuzz's device runs and the mesh phase; each path's count
-apart under "launches_by_path"), its launches on the problem mix,
+point, the fuzz's device runs, the mesh phase and the golden sweep;
+each path's count apart under "launches_by_path", keyed "step2",
+"step4", "entry", "fuzz", "mesh" and "sweep"), its launches on the
+problem mix,
 its largest difference from the plain version, its time, the plain
 version's, its bound (the larger of its bytes over the HBM rate and its
 operations over the peak rate of their type, from this run's inputs),
@@ -147,6 +164,10 @@ STAGE4_FILES = ("out-after-intron-agree.txt", "predicted-introns.txt")
 STEP2_KERNELS = ("kband", "nw", "gap", "rowmin")
 FP32_OPS_PER_S = 67e12   # H100 SXM data sheet, float32 outside the MMA
 STEP4_KERNELS = ("pwm", "edit_score")
+# the golden loci with inputs, phase 11's sweep
+SWEEP_CASES = ("test-788", "test-AMBN", "test-CPB2", "test-TP53",
+               "test-issue-2", "test-issue-13", "test-mattia1",
+               "test-mattia3", "test_gtf5")
 KERNELS = {
     "kband": ("pintron_tpu_torch/csrc/kband.cu",
               "pintron_tpu/ops/pallas_align.py:67"),
@@ -1435,6 +1456,69 @@ def phase_fuzz(gpu, n_cases=9):
     return launches
 
 
+def phase_sweep(gpu, device="cuda"):
+    """The golden sweep on the card: STEP 2 of the 9 golden loci with
+    inputs (check_stage2.check_case), each byte for byte the golden's
+    with every family's problems on the card and each STEP 2 kernel
+    launched, its routes on a line; then the 9 through one batch on a
+    device service (check_batch_sweep.sweep), each locus's finals byte
+    for byte its --device host solo run's and of that run's class
+    against the golden (check_e2e.classify_case), never diff.  Returns
+    the sweep path's launches: this process's and the batch's
+    service's."""
+    from pintron_tpu_torch.ops import kband
+    from pintron_tpu_torch.tools import check_batch_sweep, check_stage2
+    t0 = time.perf_counter()
+    kband.reset_launches()      # the sweep path's run starts here
+    loci = {}
+    for case in SWEEP_CASES:
+        res = check_stage2.check_case(case, device)
+        print(f"{check_stage2.case_line(res)}  [{gpu}]", flush=True)
+        if res["status"] != "OK":
+            raise AssertionError(f"{case}: STEP 2 {res['differs']}")
+        print(f"  routes: {check_stage2.routes_line(res)}", flush=True)
+        idle = [k for k in STEP2_KERNELS if res["launches"][k] <= 0]
+        if idle:
+            raise AssertionError(f"{case}: STEP 2 left {idle} unlaunched: "
+                                 f"{res['launches']}")
+        loci[case] = {k: res[k] for k in ("ests", "seconds", "ests_per_s",
+                                          "families", "launches", "buckets",
+                                          "host_cells")}
+        loci[case].update(kband_ub_max=res["stats"]["kband_ub_max"],
+                          device_cells=res["stats"]["device_cells"])
+    step2_s = time.perf_counter() - t0
+    sw = check_batch_sweep.sweep(list(SWEEP_CASES), device)
+    launches = dict(kband.LAUNCHES)     # ... and ends here
+    summary = sw["summary"]
+    service = summary["service"]["launches"]
+    print(f"batch sweep --device {device}: {summary['jobs']} loci in "
+          f"{sw['seconds']:.2f} s ({summary['ok']} ok); service "
+          f"{summary['service']}  [{gpu}]", flush=True)
+    for case, c in sw["cases"].items():
+        print(check_batch_sweep.case_line(case, c), flush=True)
+        loci[case].update(batch_class=c["label"], bucket=c["bucket"],
+                          host_bucket=c["solo_bucket"],
+                          job_seconds=c["job_seconds"])
+    if not sw["ok"] or sorted(sw["cases"]) != sorted(SWEEP_CASES):
+        raise AssertionError(f"batch sweep: {sw['cases']}, skipped "
+                             f"{sw['skipped']}")
+    total = {k: launches[k] + service[k] for k in launches}
+    idle = [k for k in STEP2_KERNELS + STEP4_KERNELS if total[k] <= 0]
+    if idle:
+        raise AssertionError(f"the sweep left {idle} unlaunched: {total}")
+    wall = time.perf_counter() - t0
+    print(f"golden sweep: 9 loci byte-identical in STEP 2 ({step2_s:.1f} s), "
+          f"every batch locus equal to its host run, classes "
+          f"{[c['bucket'] for c in sw['cases'].values()]}; launches "
+          f"{total}; phase {wall:.1f} s  [{gpu}]", flush=True)
+    print(json.dumps({"sweep": {"loci": loci, "step2_s": step2_s,
+                                "batch_s": sw["seconds"], "phase_s": wall,
+                                "service": summary["service"],
+                                "launches": total, "gpu": gpu}}),
+          flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1494,6 +1578,9 @@ def main() -> int:
     phase("10. mesh and multi-process STEP 2 on the card")
     mesh_launches = phase_mesh(dev, gpu, clock)
 
+    phase("11. golden sweep on the card")
+    sweep_launches = phase_sweep(gpu)
+
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "pintron_tpu" or m.startswith("pintron_tpu.")]
     if jax_pkg:
@@ -1503,7 +1590,7 @@ def main() -> int:
     for key, (src, replaces) in KERNELS.items():
         by_path = {"step2": step2[key], "step4": step4[key],
                    "entry": entry_launches[key], "fuzz": fuzz_launches[key],
-                   "mesh": mesh_launches[key]}
+                   "mesh": mesh_launches[key], "sweep": sweep_launches[key]}
         launches = sum(by_path.values())
         if launches <= 0:
             raise AssertionError(f"{key}_kernel never launched on the "

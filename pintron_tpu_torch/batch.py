@@ -1,7 +1,7 @@
 """Multi-locus batch driver of the port (``python -m pintron_tpu_torch.batch``).
 
     python -m pintron_tpu_torch.batch --manifest M [--jobs N] \
-        [--summary S] [--device cuda|cuda:N|cpu|host]
+        [--summary S] [--device cuda|cuda:N|cpu|host] [-k]
 
 The counterpart of ``pintron_tpu.batch``, with the same manifest (a TSV
 of ``workdir, genomic, ests, gene[, organism]``, relative paths against
@@ -18,6 +18,8 @@ default mode.  By default as many loci run at once as there are cores,
 and each locus's STEP 2 shards over the cores left to it
 (``PINTRON_EST_WORKERS`` = cores // loci at once): with at least as
 many loci as cores that is one worker, so STEP 2 is not sharded.
+``-k`` keeps each locus's intermediate files, as the pipeline's ``-k``
+does, so that its STEP 2 and STEP 4 artifacts can be checked.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import time
 from pintron_tpu_torch.ops import offload
 
 
-def _run_job(job, device):
+def _run_job(job, device, keep_intermediate):
     """Worker entry: run one locus; never raise (report instead)."""
     workdir, genomic, ests, gene, organism = job
     t0 = time.time()
@@ -45,7 +47,7 @@ def _run_job(job, device):
         shutil.copyfile(ests, os.path.join(workdir, "ests.txt"))
         from pintron_tpu_torch.pipeline import pintron_pipeline
         pintron_pipeline(workdir=workdir, gene=gene, organism=organism,
-                         keep_intermediate=False, device=device)
+                         keep_intermediate=keep_intermediate, device=device)
         with open(os.path.join(workdir, "pintron-full-output.json")) as f:
             d = json.load(f)
         return {"workdir": workdir, "gene": gene, "ok": True,
@@ -58,9 +60,9 @@ def _run_job(job, device):
                 "error": f"{type(e).__name__}: {e}"}
 
 
-def _job_worker(q, job, device):
+def _job_worker(q, job, device, keep_intermediate):
     """Module-level so that the spawn context can pickle it."""
-    q.put(_run_job(job, device))
+    q.put(_run_job(job, device, keep_intermediate))
 
 
 def read_manifest(path: str):
@@ -133,7 +135,7 @@ def stop_service(proc, sock: str):
     return report
 
 
-def run_jobs(jobs, n_jobs: int, device):
+def run_jobs(jobs, n_jobs: int, device, keep_intermediate: bool):
     """Run the jobs, at most ``n_jobs`` at a time, each in a spawned
     worker; returns their reports in the order they finish."""
     import multiprocessing
@@ -146,7 +148,8 @@ def run_jobs(jobs, n_jobs: int, device):
     while pending or running:
         while pending and len(running) < n_jobs:
             job = pending.pop(0)
-            proc = ctx.Process(target=_job_worker, args=(q, job, device))
+            proc = ctx.Process(target=_job_worker,
+                               args=(q, job, device, keep_intermediate))
             proc.start()
             running[job[0]] = (job, proc)
         try:
@@ -182,6 +185,9 @@ def main(argv=None) -> int:
                         "torch device of the service (cuda, the default, "
                         "cuda:N or cpu), or host (no service, the native "
                         "host path)")
+    p.add_argument("-k", "--keep-intermediate-files", dest="keep",
+                   action="store_true",
+                   help="keep each locus's intermediate files")
     args = p.parse_args(argv)
     if not offload.is_host(args.device):
         # cuda without a card raises here, before a service starts (the
@@ -197,12 +203,12 @@ def main(argv=None) -> int:
     t0 = time.time()
     report = None
     if offload.is_host(args.device):
-        results = run_jobs(jobs, n_jobs, args.device)
+        results = run_jobs(jobs, n_jobs, args.device, args.keep)
     else:
         proc, sock = start_service(args.device)
         os.environ[offload.SERVICE_ENV] = sock
         try:
-            results = run_jobs(jobs, n_jobs, args.device)
+            results = run_jobs(jobs, n_jobs, args.device, args.keep)
         finally:
             os.environ.pop(offload.SERVICE_ENV, None)
             report = stop_service(proc, sock)

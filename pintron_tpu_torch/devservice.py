@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import os
 import queue
+import socket
 import sys
 import threading
 import time
@@ -117,6 +118,18 @@ def _reply(conn, msg) -> None:
         pass   # the client went away; the others are still served
 
 
+def listen(socket_path: str) -> Listener:
+    """The service's socket.  Its queue of connections not yet accepted
+    is as long as the system allows: the accept thread takes one client
+    at a time through the authentication handshake, and under gVisor a
+    client whose connect finds the queue full fails at once with EAGAIN
+    (BlockingIOError), where Linux makes it wait.  With the default
+    queue of one, a locus of a batch whose 8 jobs dialled together
+    failed so."""
+    return Listener(socket_path, family="AF_UNIX", backlog=socket.SOMAXCONN,
+                    authkey=offload.AUTHKEY)
+
+
 def serve(socket_path: str, device, ready_file: str = None) -> None:
     """Serve until a shutdown request arrives."""
     # never route to ourselves: the service evaluates on its own device
@@ -127,8 +140,7 @@ def serve(socket_path: str, device, ready_file: str = None) -> None:
         os.unlink(socket_path)
     except FileNotFoundError:
         pass
-    listener = Listener(socket_path, family="AF_UNIX",
-                        authkey=offload.AUTHKEY)
+    listener = listen(socket_path)
     q: "queue.Queue" = queue.Queue()
     stop = threading.Event()
 

@@ -106,6 +106,9 @@ STATS = {"problems": 0, "device_problems": 0, "device_cells": 0,
          "batches": 0, "device_runs": 0, "device_timeouts": 0,
          "mesh_batches": 0, "kband_ub_max": 0}
 _MAXIMA = ("kband_ub_max",)
+# the (N, M) buckets each traceback family launched, with their
+# launches: the kernels' layouts and passes a run reached
+BUCKETS = {"nw": {}, "gap": {}, "rb": {}}
 _STATS_LOCK = threading.Lock()
 
 
@@ -113,6 +116,14 @@ def reset_stats() -> None:
     with _STATS_LOCK:
         for k in STATS:
             STATS[k] = 0
+        for launched in BUCKETS.values():
+            launched.clear()
+
+
+def _tally_bucket(family: str, N: int, M: int) -> None:
+    with _STATS_LOCK:
+        launched = BUCKETS[family]
+        launched[N, M] = launched.get((N, M), 0) + 1
 
 
 def tally(**counts: int) -> None:
@@ -484,7 +495,7 @@ def _buckets(problems, evaluated):
     return sorted(groups.items())
 
 
-def _traceback_batches(problems, evaluated, device, kernel, span):
+def _traceback_batches(problems, evaluated, device, kernel, family):
     """Launch every (est, gen) bucket, sub-batched to the scratch cap,
     before reading any result back.  Returns [(rows, result)] with the
     results on the host, in launch order."""
@@ -495,11 +506,12 @@ def _traceback_batches(problems, evaluated, device, kernel, span):
             chunk = rows[c0:c0 + sub]
             s1, l1 = _encode([problems[i][0] for i in chunk], N)
             s2, l2 = _encode([problems[i][1] for i in chunk], M)
-            with torch.profiler.record_function(span):
+            with torch.profiler.record_function(f"pintron_{family}"):
                 r = kernel(*from_numpy_batch(s1, l1, s2, l2, device=device),
                            max_n=N, max_m=M)
             pending.append((np.asarray(chunk), r))
             tally(batches=1)
+            _tally_bucket(family, N, M)
     return [(rows, tuple(t.cpu().numpy() for t in r))
             for rows, r in pending]
 
@@ -541,8 +553,7 @@ def _eval_nw_device(problems: List[Tuple[bytes, bytes]],
         tally(batches=1)
         return r
     for rows, (_score, ops, nsteps) in _traceback_batches(
-            problems, on_card, device, batch_nw_traceback_cuda,
-            "pintron_nw"):
+            problems, on_card, device, batch_nw_traceback_cuda, "nw"):
         w = min(L, ops.shape[1])
         all_ops[rows, :w] = ops[:, :w]
         all_n[rows] = nsteps
@@ -582,8 +593,7 @@ def _eval_gap_device(problems: List[Tuple[bytes, bytes]],
         tally(batches=1)
         return r
     for rows, (sm, ops, nsteps) in _traceback_batches(
-            problems, evaluated, device, batch_gap_traceback_cuda,
-            "pintron_gap"):
+            problems, evaluated, device, batch_gap_traceback_cuda, "gap"):
         w = min(L, ops.shape[1])
         all_ops[rows, :w] = ops[:, :w]
         all_sm[rows] = sm
@@ -632,6 +642,7 @@ def _eval_rb_device(problems: List[Tuple[bytes, bytes]],
                 max_rows=M)
         pending.append((np.asarray(rows), r))
         tally(batches=1)
+        _tally_bucket("rb", N, M)
     for rows, (v, q) in pending:
         w = min(stride, v.shape[1])
         vals[rows, :w] = v[:, :w].cpu().numpy()

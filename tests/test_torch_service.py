@@ -184,6 +184,54 @@ def test_unknown_op_raises_in_the_client(service, local, monkeypatch):
         offload.service_eval("no-such-op", None, torch.device("cpu"))
 
 
+def test_service_queues_as_many_dialling_clients_as_the_system_allows(
+        tmp_path):
+    """The service's accept queue is SOMAXCONN long, not the default
+    one: where a full queue fails a connect at once (gVisor), a batch's
+    jobs dialling together must all get through.  ``ss`` reads a
+    listening socket's queue length as its Send-Q."""
+    import socket
+
+    from pintron_tpu_torch.devservice import listen
+    if shutil.which("ss") is None:
+        pytest.skip("needs ss to read the socket's queue length")
+    path = str(tmp_path / "dev.sock")
+    listener = listen(path)
+    try:
+        out = subprocess.run(["ss", "-xlH"], capture_output=True, text=True,
+                             check=True).stdout
+    finally:
+        listener.close()
+    queue_len = [int(ln.split()[3]) for ln in out.splitlines()
+                 if path in ln.split()]
+    assert queue_len == [socket.SOMAXCONN]
+
+
+def test_clients_dialling_at_once_all_connect(service, local):
+    """64 clients dial the service at the same moment; each takes its
+    handshake."""
+    import threading
+    go, served, errors = threading.Event(), [], []
+
+    def dial():
+        go.wait()
+        try:
+            conn, device = offload._dial(service)
+            conn.close()
+            served.append(device)
+        except OSError as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=dial) for _ in range(64)]
+    for t in threads:
+        t.start()
+    go.set()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and served == ["cpu"] * 64
+
+
 def test_cuda_client_on_a_cpu_service_raises(service, local, monkeypatch):
     """A client checks the service's device on connecting: a cuda run
     never lands on a cpu service, whether it selects its device or
