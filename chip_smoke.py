@@ -104,15 +104,25 @@ failure (so the script exits non-zero and never prints its last line):
      none diff; the counters are reset just before the phase and read
      just after it, the service's launches added, and every STEP 2 and
      STEP 4 kernel must have launched.
+ 12. the family routes: STEP 2 on TP53 and issue-13 through
+     check_stage2.check_case, forced (no switch set), with each
+     family's PINTRON_DEVICE_{KBAND,NW,GAP,RB} at 0 in turn (the host DP
+     inside the cascade), and with all four at auto (the self-tuner,
+     cleared before each locus), each run byte for byte the golden's;
+     a family at 0 must launch its kernel no time and every other
+     family exactly as often as in the forced run; each run's ESTs/s,
+     device share of the DP cells, launches, latches and tuner counters
+     on a line, and all of them on one JSON line; the counters are
+     reset just before the phase and read just after it.
 
 Nothing of the JAX package is imported: the goldens, the port's host
 path and its native C DPs are the references.  Before the last line it
 prints the card line and one JSON object: under "kernels" every
 kernel, with its launches on the main path (STEPs 2 and 4, the entry
-point, the fuzz's device runs, the mesh phase and the golden sweep;
-each path's count apart under "launches_by_path", keyed "step2",
-"step4", "entry", "fuzz", "mesh" and "sweep"), its launches on the
-problem mix,
+point, the fuzz's device runs, the mesh phase, the golden sweep and
+the family routes; each path's count apart under "launches_by_path",
+keyed "step2", "step4", "entry", "fuzz", "mesh", "sweep" and
+"routes"), its launches on the problem mix,
 its largest difference from the plain version, its time, the plain
 version's, its bound (the larger of its bytes over the HBM rate and its
 operations over the peak rate of their type, from this run's inputs),
@@ -1519,6 +1529,86 @@ def phase_sweep(gpu, device="cuda"):
     return total
 
 
+# the kernel each STEP 2 family launches on the golden loci
+FAMILY_KERNELS = {"kband": "kband", "nw": "nw", "gap": "gap", "rb": "rowmin"}
+
+
+def phase_routes(gpu, device="cuda", cases=("test-TP53", "test-issue-13")):
+    """STEP 2 on TP53 and issue-13 (check_stage2.check_case: one
+    process, fresh memo, byte for byte the golden's) forced (nothing
+    set), with each family's PINTRON_DEVICE_<F> at 0 in turn, and with
+    all four at auto (the tuner cleared before each locus).  A family at
+    0 must launch its kernel no time and every other family as in the
+    forced run.  Each run's ESTs/s, device share of the DP cells, launches
+    and latches on a line.  Returns the phase's launches."""
+    from pintron_tpu_torch.ops import kband, offload
+    from pintron_tpu_torch.tools import check_stage2
+    envs = [offload.family_env(f) for f in offload.FAMILIES]
+    runs = ([("forced", {})]
+            + [(f"{f}=0", {offload.family_env(f): "0"})
+               for f in offload.FAMILIES]
+            + [("auto", dict.fromkeys(envs, "auto"))])
+    t0 = time.perf_counter()
+    table = {}
+    kband.reset_launches()      # the routes path's run starts here
+    try:
+        for case in cases:
+            offload.reset_tuner()
+            forced = None
+            for label, env in runs:
+                for var in envs:
+                    os.environ.pop(var, None)
+                os.environ.update(env)
+                res = check_stage2.check_case(case, device)
+                if res["status"] != "OK":
+                    raise AssertionError(f"{case} {label}: STEP 2 "
+                                         f"{res['differs']}")
+                lc = {k: res["launches"][k] for k in STEP2_KERNELS}
+                if forced is None:
+                    forced = lc
+                    if min(lc.values()) <= 0:
+                        raise AssertionError(f"{case} forced: a STEP 2 "
+                                             f"kernel never launched: {lc}")
+                host = {FAMILY_KERNELS[f] for f, route in
+                        offload.family_routes().items() if route == "host"}
+                want = {k: 0 if k in host else forced[k]
+                        for k in STEP2_KERNELS}
+                if label != "auto" and lc != want:
+                    raise AssertionError(f"{case} {label}: launches {lc}, "
+                                         f"expected {want}")
+                stats = res["stats"]
+                dev = stats["device_cells"]
+                total = dev + sum(res["host_cells"].values())
+                row = {"ests_per_s": res["ests_per_s"],
+                       "seconds": res["seconds"],
+                       "device_cell_share": dev / total if total else 0.0,
+                       "launches": lc, "latches": offload.latches(),
+                       "tuner": {f: {c: stats[f"{f}_{c}"]
+                                     for c in offload.TUNE_COUNTS}
+                                 for f in offload.FAMILIES}}
+                table[f"{case}|{label}"] = row
+                counted = {f: {c: v for c, v in t.items() if v}
+                           for f, t in row["tuner"].items()}
+                print(f"{case} {label}: STEP 2 byte-identical to golden; "
+                      f"{res['ests']} ESTs in {res['seconds']:.3f} s = "
+                      f"{res['ests_per_s']:.2f} ESTs/s; device share "
+                      f"{row['device_cell_share']:.4f}; launches {lc}; "
+                      f"latches {row['latches']}; tuner counts {counted}  "
+                      f"[{gpu}]", flush=True)
+    finally:
+        for var in envs:
+            os.environ.pop(var, None)
+        offload.reset_tuner()
+    launches = dict(kband.LAUNCHES)     # ... and ends here
+    print(f"family routes: {len(table)} runs byte-identical, every family "
+          f"at 0 "
+          f"launched nothing, the others as forced; launches {launches}; "
+          f"phase {time.perf_counter() - t0:.1f} s  [{gpu}]", flush=True)
+    print(json.dumps({"routes": {"runs": table, "launches": launches,
+                                 "gpu": gpu}}), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1581,6 +1671,9 @@ def main() -> int:
     phase("11. golden sweep on the card")
     sweep_launches = phase_sweep(gpu)
 
+    phase("12. family routes: each family on the host DP, and the tuner")
+    routes_launches = phase_routes(gpu)
+
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "pintron_tpu" or m.startswith("pintron_tpu.")]
     if jax_pkg:
@@ -1590,7 +1683,8 @@ def main() -> int:
     for key, (src, replaces) in KERNELS.items():
         by_path = {"step2": step2[key], "step4": step4[key],
                    "entry": entry_launches[key], "fuzz": fuzz_launches[key],
-                   "mesh": mesh_launches[key], "sweep": sweep_launches[key]}
+                   "mesh": mesh_launches[key], "sweep": sweep_launches[key],
+                   "routes": routes_launches[key]}
         launches = sum(by_path.values())
         if launches <= 0:
             raise AssertionError(f"{key}_kernel never launched on the "

@@ -31,18 +31,26 @@ which prints its cumulative JSON after each channel:
           its bytes over the HBM rate and its integer operations over
           the INT32 peak, ``measure_kband.kband_bound``), and the card;
   mode    the device service (``batch.start_service``) and STEP 2 on
-          AMBN through it, best of ``mode_runs``: ESTs/s, problems
-          offloaded, the device's share of the DP cells against the
-          host census, the host cells by family, the service's
-          launches;
+          AMBN through it, forced (no ``PINTRON_DEVICE_<F>`` set: every
+          family on the card) and under the self-tuner (all four
+          ``auto``; the tuner cleared once, before the warm runs), in
+          turns, best of ``mode_runs``, the JAX bench's keys: the auto
+          run's ESTs/s (``device_mode_ests_per_s``), problems offloaded,
+          the device's share of the DP cells against the host census,
+          the host cells by family and the latches it ends with; the
+          forced run's under ``device_mode_forced_ests_per_s``,
+          ``device_cell_fraction_forced`` and the other ``_forced``
+          keys; the service's launches of both;
   stress  the synthetic 1 Mb x 5000 EST locus (``tools.scale_stress.
           make_case``, seed 7), STEP 2 through the service against the
           host path's fork pool, fresh memo, in turns, best of
           ``stress_runs``: ESTs/s and walls of both, their ratio, the
           device problems, the device's share of the DP cells and the
           host cells by family (host ``gap_align`` cells are gap
-          lookaside misses); the first runs of the two must be equal
-          byte for byte.
+          lookaside misses); beside them in turns the K-band-only flow
+          (NW, gap and refine-borders at 0, the JAX bench's run):
+          ESTs/s, wall and device share; the first runs of the three
+          must be equal byte for byte.
 
 A channel that fails, or a child that times out, puts
 ``device_channels_error`` (the channel and the last line of the child's
@@ -177,11 +185,13 @@ def headline(gold: str, tmp: str, n_ests: int, device, *, blocks: int,
         for _ in range(warm_runs):
             best_warm = min(best_warm, _timed_step2(works[str(device)],
                                                     device))
-    rate = n_ests / best[str(device)]
+    # vs_baseline is the printed value's ratio (rounding the unrounded
+    # rate's could differ from it in the last digit)
+    value = round(n_ests / best[str(device)], 2)
     return {
         "metric": "est-fact throughput (AMBN locus, fresh-locus work)",
-        "value": round(rate, 2), "unit": "ESTs/s", "device": str(device),
-        "vs_baseline": round(rate / BASELINE_ESTS_PER_S, 3),
+        "value": value, "unit": "ESTs/s", "device": str(device),
+        "vs_baseline": round(value / BASELINE_ESTS_PER_S, 3),
         "baseline_ests_per_s": BASELINE_ESTS_PER_S,
         "baseline_source": "stored",
         "host_ests_per_s": round(n_ests / best["host"], 2),
@@ -272,38 +282,70 @@ def _service_runs(work: str, device: str, sock: str, n: int):
     return best, flow.last
 
 
+def _routes_env(value=None, families=None) -> dict:
+    """The four family switches (``offload.family_env``): ``families``
+    (all by default) set to ``value``, the others unset."""
+    from pintron_tpu_torch.ops import offload
+    families = offload.FAMILIES if families is None else families
+    return {offload.family_env(f): value if f in families else None
+            for f in offload.FAMILIES}
+
+
 def channel_mode(o: dict) -> dict:
-    """STEP 2 on AMBN through the device service."""
+    """STEP 2 on AMBN through the device service, forced (no switch set)
+    and with every family under the self-tuner, in turns."""
     from pintron_tpu_torch.batch import start_service, stop_service
+    from pintron_tpu_torch.ops import offload
+    modes = {"forced": _routes_env(), "auto": _routes_env("auto")}
+    best = dict.fromkeys(modes, float("inf"))
+    flow = {}
     tmp = tempfile.mkdtemp(prefix="pintron-bench-mode-")
     try:
         work = _copy_inputs(o["gold"], tmp)
         proc, sock = start_service(o["device"])
         try:
-            _service_runs(work, o["device"], sock, 1)       # warm
-            _same_files(o["gold"], work, "device mode, first fresh run")
-            best, flow = _service_runs(work, o["device"], sock,
-                                       o["mode_runs"])
+            offload.reset_tuner()
+            for mode, env in modes.items():
+                with _env(**env):
+                    _service_runs(work, o["device"], sock, 1)       # warm
+                _same_files(o["gold"], work,
+                            f"device mode {mode}, first fresh run")
+            for _ in range(o["mode_runs"]):
+                for mode, env in modes.items():
+                    with _env(**env):
+                        dt, flow[mode] = _service_runs(work, o["device"],
+                                                       sock, 1)
+                    best[mode] = min(best[mode], dt)
         finally:
             report = stop_service(proc, sock)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if report is None:
         raise RuntimeError("the device service did not report")
-    host = flow["host_dp_cells"]
-    return {"device_mode_ests_per_s": round(o["n_ests"] / best, 2),
+    auto, forced = flow["auto"], flow["forced"]
+    return {"device_mode_ests_per_s": round(o["n_ests"] / best["auto"], 2),
             "device_mode_problems_offloaded":
-                flow["stats"]["device_problems"],
-            "device_cell_fraction": round(flow["device_cell_share"], 4),
-            "host_cells_by_family": host,
-            "device_cells_per_run": flow["stats"]["device_cells"],
+                auto["stats"]["device_problems"],
+            "device_cell_fraction": round(auto["device_cell_share"], 4),
+            "host_cells_by_family": auto["host_dp_cells"],
+            "device_cells_per_run": auto["stats"]["device_cells"],
+            "device_mode_latches": auto["latches"],
+            "device_mode_forced_ests_per_s":
+                round(o["n_ests"] / best["forced"], 2),
+            "device_mode_forced_problems_offloaded":
+                forced["stats"]["device_problems"],
+            "device_cell_fraction_forced":
+                round(forced["device_cell_share"], 4),
+            "host_cells_by_family_forced": forced["host_dp_cells"],
+            "device_cells_per_run_forced": forced["stats"]["device_cells"],
             "device_mode_service_launches": report["launches"],
             "device_mode_runs": o["mode_runs"]}
 
 
 def channel_stress(o: dict) -> dict:
     """The synthetic stress locus: the device flow through the service
-    against the host path's fork pool."""
+    against the host path's fork pool, and the K-band-only flow (NW,
+    gap and refine-borders at 0) beside them."""
     from pintron_tpu_torch.batch import start_service, stop_service
     from pintron_tpu_torch.tools.scale_stress import make_case
     glen, n_ests, seed = o["stress_case"]
@@ -312,18 +354,28 @@ def channel_stress(o: dict) -> dict:
         src = tempfile.mkdtemp(dir=tmp)
         made = make_case(src, glen, n_ests, seed)
         dev_work, host_work = _copy_inputs(src, tmp), _copy_inputs(src, tmp)
+        kb_work = _copy_inputs(src, tmp)
+        kb_env = _routes_env("0", ("nw", "gap", "rb"))
         proc, sock = start_service(o["device"])
         try:
             _service_runs(dev_work, o["device"], sock, 1)       # warm
+            with _env(**kb_env):
+                _service_runs(kb_work, o["device"], sock, 1)
             with _env(PINTRON_FRESH_MEMO="1", PINTRON_TORCH_SERVICE=None):
                 _timed_step2(host_work, "host")
             _same_files(host_work, dev_work, "stress, device against host")
-            best_dev = best_host = float("inf")
+            _same_files(host_work, kb_work, "stress, K-band only against "
+                        "host")
+            best_dev = best_kb = best_host = float("inf")
             problems = None
             for _ in range(o["stress_runs"]):
                 dt, flow = _service_runs(dev_work, o["device"], sock, 1)
                 best_dev = min(best_dev, dt)
                 problems = flow["stats"]["device_problems"]
+                with _env(**kb_env):
+                    dt, kb_flow = _service_runs(kb_work, o["device"], sock,
+                                                1)
+                best_kb = min(best_kb, dt)
                 with _env(PINTRON_FRESH_MEMO="1",
                           PINTRON_TORCH_SERVICE=None):
                     best_host = min(best_host,
@@ -344,6 +396,10 @@ def channel_stress(o: dict) -> dict:
             "stress_device_cell_fraction": round(
                 flow["device_cell_share"], 4),
             "stress_host_cells_by_family": flow["host_dp_cells"],
+            "stress_device_kband_only_ests_per_s": round(made / best_kb, 1),
+            "stress_device_kband_only_s": best_kb,
+            "stress_kband_only_cell_fraction": round(
+                kb_flow["device_cell_share"], 4),
             "stress_service_launches": report["launches"],
             "stress_runs": o["stress_runs"]}
 
@@ -422,6 +478,10 @@ def main(argv=None) -> int:
                    help="seconds the device channels' child may take")
     args = p.parse_args(argv)
     device = check_card(args.device)
+    preset = [var for var in _routes_env() if os.environ.get(var)]
+    if preset:
+        raise RuntimeError(f"unset {', '.join(preset)}: the bench sets the "
+                           "family switches of each run itself")
     tmp = tempfile.mkdtemp(prefix="pintron-torch-bench-")
     try:
         gold = os.path.join(tmp, "gold")

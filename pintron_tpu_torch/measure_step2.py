@@ -18,6 +18,19 @@ STEP 2 modes, each run on a fresh copy of the locus with a fresh memo
   svc4   the same over 4 fork workers;
   svc1   the one-process device flow, its batches through the service.
 
+With ``--routes``, only the family routes instead (one process, on the
+GPU; ``PINTRON_DEVICE_<F>``, ``ops.offload.family_routes``):
+
+  cuda        every family on the card (no switch set);
+  kband-host, nw-host, gap-host, rb-host
+              that family's switch at 0, the host DP inside the cascade;
+  auto        all four under the self-tuner, cleared before each locus's
+              first run and carried across its runs.
+
+Each route run records the device share of the DP cells, the tuner's
+latches after it and its counters (under ``routes`` in the JSON); then
+one profiled run of each mode a locus, as above (under ``profile``).
+
 STEP 4 modes, from the goldens' STEP 3 outputs, byte-compared too:
 
   step4-cuda  the port's stage, BPS sweep and edit stats on the GPU;
@@ -67,6 +80,11 @@ MODES = {"cuda": ("cuda", None, False), "cpu": ("cpu", None, False),
          "host1": ("host", "1", False), "host8": ("host", "8", False),
          "svc8": ("cuda", "8", True), "svc4": ("cuda", "4", True),
          "svc1": ("cuda", "1", True)}
+# --routes: mode -> the family switches it sets
+ROUTES = {"cuda": {}, **{f"{f}-host": {f"PINTRON_DEVICE_{f.upper()}": "0"}
+                         for f in ("kband", "nw", "gap", "rb")},
+          "auto": {f"PINTRON_DEVICE_{f.upper()}": "auto"
+                   for f in ("kband", "nw", "gap", "rb")}}
 STEP4_INPUTS = ("genomic.txt", "processed-ests.txt", "out-agree.txt")
 STEP4 = ("out-after-intron-agree.txt", "predicted-introns.txt")
 STEP4_MODES = {"step4-cuda": "cuda", "step4-host": "host"}
@@ -104,6 +122,32 @@ def _run(case_dir: str, tmp: str, mode: str, service: str) -> float:
         os.environ.pop("PINTRON_EST_WORKERS", None)
         os.environ.pop(SERVICE_ENV, None)
     _check(case_dir, work, STAGE2_ARTIFACTS, mode)
+    return dt
+
+
+def _run_route(case_dir: str, tmp: str, mode: str, record: list) -> float:
+    """One STEP 2 run of route ``mode`` (``ROUTES``) on the GPU in this
+    process; appends its device share, latches and tuner counters to
+    ``record`` and returns seconds."""
+    from pintron_tpu_torch.native import dp_census, dp_census_reset
+    from pintron_tpu_torch.ops import kband, offload
+    offload.reset_stats()
+    dp_census_reset()
+    before = dict(kband.LAUNCHES)
+    os.environ.update(ROUTES[mode])
+    try:
+        dt = _run(case_dir, tmp, "cuda", "")
+    finally:
+        for var in ROUTES[mode]:
+            os.environ.pop(var, None)
+    dev = offload.STATS["device_cells"]
+    total = dev + sum((dp_census() or {}).values())
+    record.append({
+        "mode": mode, "s": dt, "device_cell_share": dev / total,
+        "launches": {k: kband.LAUNCHES[k] - before[k] for k in before},
+        "latches": offload.latches(),
+        "tuner": {k: v for k, v in offload.STATS.items()
+                  if k.split("_", 1)[-1] in offload.TUNE_COUNTS and v}})
     return dt
 
 
@@ -239,6 +283,8 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=4)
     p.add_argument("--profile-only", action="store_true",
                    help="only the profiled cuda runs of each step")
+    p.add_argument("--routes", action="store_true",
+                   help="only the family routes (ROUTES), timed")
     p.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                  "step2_measure.json"))
     args = p.parse_args(argv)
@@ -252,7 +298,13 @@ def main(argv=None) -> int:
     os.environ["PINTRON_FRESH_MEMO"] = "1"
     gpu = card_line()
     out = {"gpu": gpu, "torch": torch.__version__, "reps": args.reps,
-           "summary": {}, "profile": {}, "workers_trace": {}}
+           "summary": {}, "profile": {}, "workers_trace": {}, "routes": {}}
+    if args.routes:
+        from pintron_tpu_torch.ops import offload
+        if any(os.environ.get(offload.family_env(f))
+               for f in offload.FAMILIES):
+            raise RuntimeError("unset PINTRON_DEVICE_{KBAND,NW,GAP,RB}: "
+                               "--routes sets them for each mode")
     from pintron_tpu_torch.batch import start_service, stop_service
     tmp = tempfile.mkdtemp(prefix="measure-step2-")
     proc, sock = start_service("cuda")
@@ -263,6 +315,25 @@ def main(argv=None) -> int:
                 tf.extractall(case_dir, filter="data")
             with open(os.path.join(case_dir, "ests.txt")) as f:
                 n_ests = sum(1 for ln in f if ln.startswith(">"))
+            if args.routes:
+                offload.reset_tuner()
+                record = out["routes"][case] = []
+                _timed(out, case, n_ests, list(ROUTES),
+                       lambda m: _run_route(case_dir, tmp, m, record),
+                       args.reps, gpu)
+                for mode in ROUTES:
+                    last = [r for r in record if r["mode"] == mode][-1]
+                    prof = _profile(lambda: _run_route(case_dir, tmp, mode,
+                                                       record))
+                    out["profile"][f"{case}|{mode}"] = prof
+                    print(f"{case} {mode}: device share "
+                          f"{last['device_cell_share']:.4f}, launches "
+                          f"{last['launches']}, latches {last['latches']}, "
+                          f"tuner {last['tuner']} (the last timed run); "
+                          f"profiled: wall {prof['wall_ms']:.1f} ms, device "
+                          f"{prof['device_ms']} ms, host phases "
+                          f"{prof['host_phases_ms']}  [{gpu}]", flush=True)
+                continue
             if args.profile_only:
                 _run(case_dir, tmp, "cuda", sock)
                 _run4(case_dir, tmp, "step4-cuda")

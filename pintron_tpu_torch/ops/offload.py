@@ -105,6 +105,16 @@ STATS = {"problems": 0, "device_problems": 0, "device_cells": 0,
          "edit_problems": 0, "pwm_windows": 0,
          "batches": 0, "device_runs": 0, "device_timeouts": 0,
          "mesh_batches": 0, "kband_ub_max": 0}
+# Where each STEP 2 family ran (the routes and the self-tuner below),
+# for kband, nw, gap and rb: ``<f>_on_host`` counts the batch
+# opportunities left to the host DP (switch at 0, latched skip, or
+# auto's small-batch gate), ``<f>_skips`` the latched skips among them,
+# ``<f>_probes`` the re-probes armed, ``<f>_reports`` the batches the
+# tuner timed and ``<f>_latched`` those of them after which the family
+# was latched off.
+FAMILIES = ("kband", "nw", "gap", "rb")
+TUNE_COUNTS = ("on_host", "skips", "probes", "reports", "latched")
+STATS.update({f"{fam}_{c}": 0 for fam in FAMILIES for c in TUNE_COUNTS})
 _MAXIMA = ("kband_ub_max",)
 # the (N, M) buckets each traceback family launched, with their
 # launches: the kernels' layouts and passes a run reached
@@ -113,6 +123,7 @@ _STATS_LOCK = threading.Lock()
 
 
 def reset_stats() -> None:
+    """Zero the counters; the tuner's latches stay (``reset_tuner``)."""
     with _STATS_LOCK:
         for k in STATS:
             STATS[k] = 0
@@ -131,6 +142,192 @@ def tally(**counts: int) -> None:
     with _STATS_LOCK:
         for k, n in counts.items():
             STATS[k] = max(STATS[k], n) if k in _MAXIMA else STATS[k] + n
+
+
+# ---- per-family routes and the self-tuner --------------------------------
+# PINTRON_DEVICE_{KBAND,NW,GAP,RB} route one DP family of the STEP 2
+# device flow each (the JAX package's switches, same names):
+#   unset, empty or "1"  the card, forced: the tuner is never consulted;
+#   "0"                  the host's native DP computes the family inside
+#                        the cascade, as with no device;
+#   "auto"               the self-tuner: each timed batch against the
+#                        family's host estimate latches it off or on.
+# Any other value raises (the JAX package reads it as auto).  No route
+# is a fallback: a batch that fails or times out raises under every
+# value, and the flow never leaves the card whole (the JAX package's
+# run-level bypass when all four latch off is not ported; the host path
+# is ``device="host"``).
+
+CARD, HOST_DP, AUTO = "card", "host", "auto"
+_ROUTE_OF = {"": CARD, "1": CARD, "0": HOST_DP, "auto": AUTO}
+
+
+def family_env(family: str) -> str:
+    return f"PINTRON_DEVICE_{family.upper()}"
+
+
+def family_routes() -> dict:
+    """{family: "card" | "host" | "auto"} from the four switches;
+    raises ValueError on any other value."""
+    routes = {}
+    for fam in FAMILIES:
+        value = os.environ.get(family_env(fam), "")
+        if value not in _ROUTE_OF:
+            raise ValueError(f"{family_env(fam)}={value!r}: use 1 (the card, "
+                             "the default), 0 (the host DP) or auto (the "
+                             "self-tuner)")
+        routes[fam] = _ROUTE_OF[value]
+    return routes
+
+
+# The tuner's policy is the JAX package's (offload.py:424-481): latch a
+# family off when a timed batch took over LATCH_RATIO times its host
+# estimate, clear the latch under CLEAR_RATIO times it, hold in between;
+# while latched, every TUNE_REPROBE_EVERY-th opportunity arms a re-probe
+# that passes every gate until its measurement lands.  Its absolute
+# floors (a batch under LATCH_FLOOR_S never latches, one under
+# CLEAR_FLOOR_S always clears; the JAX package's 4 ms and 2 ms are a TPU
+# link's), its host estimates and the small-batch gates are the card
+# machine's own, measured by ``python -m pintron_tpu_torch.measure_host_dp``
+# beside an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, on its
+# host's CPU (8 CPUs, GenuineIntel family 6 model 207 at 2489 MHz; its
+# /proc/cpuinfo names no model), torch 2.11.0+cu128:
+#   CALL_FLOOR_S     the slowest family's median entry call on a batch of
+#                    one problem (K-band; NW 0.836, gap 0.813, rb 0.782
+#                    ms): the dispatch thread, the copies and the launch;
+#   HOST_S_PER_CELL  the port's native host DP (the cascade's own C
+#                    functions, one thread) over the 9581 K-band, 6251
+#                    NW, 5401 gap and 6530 rb problems STEP 2 sends on
+#                    TP53 and issue-13, seconds a cell as ``tune_cells``
+#                    counts them (rb's small problems pay a ctypes call
+#                    each, which the cascade does not);
+#   *_MIN_BATCH      the fewest problems whose host estimate, at the
+#                    main path's mean cells a problem (rb 566, gap
+#                    35405), reaches CALL_FLOOR_S: auto leaves a smaller
+#                    rb or gap batch to the host DP.
+# A second run on another machine of the same kind read a 1.28 ms floor
+# and host rates 5-50% slower (PERF.md): the constants are that close.
+TUNE_REPROBE_EVERY = 8
+LATCH_RATIO, CLEAR_RATIO = 2.0, 1.2
+CALL_FLOOR_S = 0.000931
+LATCH_FLOOR_S = 2 * CALL_FLOOR_S
+CLEAR_FLOOR_S = CALL_FLOOR_S
+HOST_S_PER_CELL = {"kband": 1.343e-9, "nw": 3.931e-10, "gap": 4.729e-10,
+                   "rb": 2.904e-9}
+RB_MIN_BATCH = 567
+GAP_MIN_BATCH = 56
+
+_TUNED_OFF = dict.fromkeys(FAMILIES, False)
+_TUNE_SKIPS = dict.fromkeys(FAMILIES, 0)
+_PROBE_PENDING = dict.fromkeys(FAMILIES, False)
+# the executor thread reports K-band and gap batches while this thread
+# reports NW and rb ones
+_TUNE_LOCK = threading.Lock()
+
+
+def tuned_off(family: str) -> bool:
+    """One opportunity of a family under the tuner: True while it is
+    latched off, except that every TUNE_REPROBE_EVERY-th opportunity
+    arms a re-probe, and an armed family answers False until
+    ``tune_report`` records the probe's batch."""
+    with _TUNE_LOCK:
+        if not _TUNED_OFF[family] or _PROBE_PENDING[family]:
+            return False
+        _TUNE_SKIPS[family] += 1
+        if _TUNE_SKIPS[family] >= TUNE_REPROBE_EVERY:
+            _TUNE_SKIPS[family] = 0
+            _PROBE_PENDING[family] = True
+            tally(**{f"{family}_probes": 1})
+            return False
+        tally(**{f"{family}_skips": 1})
+        return True
+
+
+def tune_report(family: str, elapsed: float, host_est: float) -> None:
+    """Record one timed batch of a family: latch it off when it took
+    over LATCH_RATIO times the host estimate (and LATCH_FLOOR_S), clear
+    the latch under CLEAR_RATIO times it (or CLEAR_FLOOR_S), keep the
+    state in between."""
+    with _TUNE_LOCK:
+        _PROBE_PENDING[family] = False
+        if elapsed > max(LATCH_RATIO * host_est, LATCH_FLOOR_S):
+            _TUNED_OFF[family] = True
+            _TUNE_SKIPS[family] = 0
+        elif elapsed < max(CLEAR_RATIO * host_est, CLEAR_FLOOR_S):
+            _TUNED_OFF[family] = False
+        tally(**{f"{family}_reports": 1,
+                 f"{family}_latched": int(_TUNED_OFF[family])})
+
+
+def on_card(family: str, route: str) -> bool:
+    """One batch opportunity of a family under its route: True sends
+    the batch to the card; False leaves it to the host DP (counted)."""
+    if route == CARD or (route == AUTO and not tuned_off(family)):
+        return True
+    tally(**{f"{family}_on_host": 1})
+    return False
+
+
+def tune_cells(family: str, problems) -> int:
+    """The DP cells of a family's batch, as the JAX device flow counts
+    them for its host estimates (est_fact.py:1117-1122, 1249-1260,
+    1354-1355, 1462-1478): NW len(e)·len(g), rb (|t|+1)(|p|+1), gap
+    3(n+1)(m+1); K-band m·(2ub+1), or n·m where the band covers the
+    matrix, for the problems that reach a DP."""
+    if family == "nw":
+        return sum(len(e) * len(g) for e, g in problems)
+    if family == "rb":
+        return sum((len(t) + 1) * (len(p) + 1) for t, p in problems)
+    if family == "gap":
+        return sum(3 * (len(e) + 1) * (len(g) + 1) for e, g in problems)
+    cells = 0
+    for g, e, ub in problems:
+        if ub == 0 or g == e:
+            continue
+        n, m = (len(g), len(e)) if len(g) >= len(e) else (len(e), len(g))
+        if n - m <= ub:
+            cells += n * m if 2 * ub + 1 >= n else m * (2 * ub + 1)
+    return cells
+
+
+def host_estimate(family: str, problems) -> float:
+    """Seconds the host DP would take for a family's batch."""
+    return tune_cells(family, problems) * HOST_S_PER_CELL[family]
+
+
+def latches() -> dict:
+    """{family: latched off} of the tuner."""
+    with _TUNE_LOCK:
+        return dict(_TUNED_OFF)
+
+
+def inherit_latches(latched: dict) -> None:
+    """Take a forked worker's latches into this process's (OR), so that
+    later forks inherit them.  The workers ran and measured any probe
+    armed here, so the pending probes are cleared."""
+    with _TUNE_LOCK:
+        for fam, off in latched.items():
+            _TUNED_OFF[fam] = _TUNED_OFF[fam] or off
+        for fam in FAMILIES:
+            _PROBE_PENDING[fam] = False
+
+
+def reset_tuner() -> None:
+    """Clear every latch, skip count and armed probe (``reset_stats``
+    leaves them alone: they are tuning state, not statistics)."""
+    with _TUNE_LOCK:
+        for fam in FAMILIES:
+            _TUNED_OFF[fam] = _PROBE_PENDING[fam] = False
+            _TUNE_SKIPS[fam] = 0
+
+
+def _new_locks() -> None:
+    """In a forked child: locks a parent thread may have held."""
+    global _STATS_LOCK, _TUNE_LOCK
+    _STATS_LOCK, _TUNE_LOCK = threading.Lock(), threading.Lock()
+
+
+os.register_at_fork(after_in_child=_new_locks)
 
 
 _DEVICE = None

@@ -39,6 +39,11 @@ A problem the offload did not evaluate (an oversized one) is left out
 of the fill, and the cascade computes it on the host.  Outputs are
 byte-identical to the host path by construction.
 
+Each family's switch, ``PINTRON_DEVICE_{KBAND,NW,GAP,RB}``, routes it
+(``offload.family_routes``): unset or ``1`` on the card (the default),
+``0`` on the host DP inside the cascade, ``auto`` under the self-tuner
+(``offload.tuned_off`` / ``tune_report``); any other value raises.
+
 With the device service set (``PINTRON_TORCH_SERVICE``), the batches go
 to the service, and a large locus is sharded round-robin over fork
 workers (``_run_units_device_forked``): the host side of the flow runs
@@ -1048,10 +1053,16 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
     forward strand failed plus any timeout-ladder retries
     (compute-est-fact.c:192-293; main-est-fact.c:247-291).
 
+    Each DP family runs where its switch routes it
+    (``offload.family_routes``): on the card, on the host DP inside the
+    cascade, or under the self-tuner, one opportunity a round (K-band,
+    NW) or a chunk (rb, gap) as in the JAX device flow.
+
     Returns [(unit index, six-blob tuple)] for the owned units, in file
     order."""
     global _GEN_KEEPALIVE, _TEXT_KEEPALIVE
     lib = _native_lib()
+    routes = offload.family_routes()
     # the native memo fast-paths on the genomic and suffix-tree buffers'
     # addresses; holding them here keeps a freed buffer from being
     # recycled at the same address
@@ -1128,13 +1139,17 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                             "latin1")
                 round_recs.append(rec)
 
-        _offload_endpoints(lib, round_recs, gen_seq_bytes)
+        if offload.on_card("nw", routes["nw"]):
+            _offload_endpoints(lib, round_recs, gen_seq_bytes, routes["nw"])
 
         # Noisy-exon collect (it memo-hits the endpoints filled above):
-        # every K-band check of the round goes to the device batch.
+        # every K-band check of the round goes to the device batch.  With
+        # the family on the host no problem is collected, and the cascade
+        # (the rb collect's replay first) computes the checks itself.
+        kband_on = offload.on_card("kband", routes["kband"])
         with _span("pintron_step2_collect_noisy"):
             for rec in round_recs:
-                if rec["cands"] is not None:
+                if kband_on and rec["cands"] is not None:
                     col = _collect_noisy(
                         lib, rec["cands"], gen_seq_bytes,
                         rec["est_bytes"], rec["est_orig_bytes"],
@@ -1250,6 +1265,13 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
         pool = (_futmod.ThreadPoolExecutor(max_workers=1)
                 if len(bounds) > 1 else None)
 
+        def eval_kband(chunk):
+            ok, elapsed = _timed(offload.eval_kband, chunk)
+            if routes["kband"] == offload.AUTO:
+                offload.tune_report("kband", elapsed,
+                                    offload.host_estimate("kband", chunk))
+            return ok
+
         # Submit EVERY chunk's K-band batch up front: the single
         # executor thread evaluates them serially ahead of the cascades,
         # while this thread works through the host cascades (the native
@@ -1264,12 +1286,11 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                     launches.append(None)
                 elif pool is None:
                     launches.append(
-                        ("done", offload.eval_kband(problems[lo:hi]),
-                         lo, hi))
+                        ("done", eval_kband(problems[lo:hi]), lo, hi))
                 else:
                     launches.append(
-                        ("fut", pool.submit(offload.eval_kband,
-                                            problems[lo:hi]), lo, hi))
+                        ("fut", pool.submit(eval_kband, problems[lo:hi]),
+                         lo, hi))
             # Software pipeline: chunk i's gap batch is in flight on the
             # executor thread while chunk i-1's cascades run here (and
             # while chunk i+1's collect and rb work proceeds).
@@ -1281,9 +1302,12 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                                         else val.result())
                 for rec in recs_c:
                     fill_kband(rec)
-                _offload_rb(lib, recs_c, gen_seq_bytes, config)
-                prep = _prep_introns(lib, recs_c, gen_seq_bytes, config,
-                                     pool)
+                if offload.on_card("rb", routes["rb"]):
+                    _offload_rb(lib, recs_c, gen_seq_bytes, config,
+                                routes["rb"])
+                prep = (_prep_introns(lib, recs_c, gen_seq_bytes, config,
+                                      pool, routes["gap"])
+                        if offload.on_card("gap", routes["gap"]) else None)
                 if staged is not None:
                     _resolve_introns(staged[1])
                     for rec in staged[0]:
@@ -1313,8 +1337,10 @@ def _run_units_device_forked(gen: mf.EstInfo, tree: SuffixTree,
     never create a CUDA context (nor does this process, which forks
     them).  Returns (per-record blobs in file order, the workers' host
     DP cells by family); the workers' offload counters are added to
-    this process's.  A failed worker raises here, after every worker
-    has ended: no other path stands in for it."""
+    this process's, and their tuner latches taken into this process's
+    (``offload.inherit_latches``), which later forks inherit.  A failed
+    worker raises here, after every worker has ended: no other path
+    stands in for it."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("fork")
@@ -1328,9 +1354,10 @@ def _run_units_device_forked(gen: mf.EstInfo, tree: SuffixTree,
             res = _run_units_device(gen, tree, gen_seq_bytes, config,
                                     ests_path, fresh=fresh,
                                     shard=(w, nworkers))
-            pw.send(("ok", res, dict(offload.STATS), dp_census() or {}))
+            pw.send(("ok", res, dict(offload.STATS), dp_census() or {},
+                     offload.latches()))
         except BaseException as e:  # noqa: BLE001 - reported to the parent
-            pw.send(("err", f"{type(e).__name__}: {e}", None, None))
+            pw.send(("err", f"{type(e).__name__}: {e}", None, None, None))
         finally:
             pw.close()
 
@@ -1345,7 +1372,7 @@ def _run_units_device_forked(gen: mf.EstInfo, tree: SuffixTree,
     merged, census, errors = {}, {}, []
     for w, (pr, proc) in enumerate(workers):
         try:
-            status, payload, stats, cells = pr.recv()
+            status, payload, stats, cells, latched = pr.recv()
         except (EOFError, OSError) as e:
             status, payload = "err", f"no reply ({type(e).__name__})"
         pr.close()
@@ -1354,6 +1381,7 @@ def _run_units_device_forked(gen: mf.EstInfo, tree: SuffixTree,
             errors.append(f"worker {w} (exit {proc.exitcode}): {payload}")
             continue
         merged.update(payload)
+        offload.inherit_latches(latched)
         offload.tally(**{k: v for k, v in stats.items()
                          if k != "device_runs"})
         for k, v in cells.items():
@@ -1365,12 +1393,21 @@ def _run_units_device_forked(gen: mf.EstInfo, tree: SuffixTree,
     return [merged[i] for i in sorted(merged)], census
 
 
+def _timed(fn, *args):
+    """(fn(*args), its wall seconds)."""
+    t0 = time.monotonic()
+    res = fn(*args)
+    return res, time.monotonic() - t0
+
+
 @_span("pintron_step2_nw_phase")
-def _offload_endpoints(lib, round_recs, gen_seq_bytes: bytes) -> None:
+def _offload_endpoints(lib, round_recs, gen_seq_bytes: bytes,
+                       route: str) -> None:
     """Endpoint-NW phase of a round: collect the head/tail alignment
     problems from the candidate arrays, evaluate them in one device
     batch with the traceback, and pre-fill the tag-1/2 memo with the
-    evaluated ones, so the noisy collect pass memo-hits them."""
+    evaluated ones, so the noisy collect pass memo-hits them.  Under
+    ``auto`` the batch's time goes to the tuner."""
     per_rec = []
     problems = []
     for rec in round_recs:
@@ -1390,7 +1427,10 @@ def _offload_endpoints(lib, round_recs, gen_seq_bytes: bytes) -> None:
         per_rec.append((rec, recs, base))
     if not problems:
         return
-    ops, nsteps, evaluated = offload.eval_nw(problems)
+    (ops, nsteps, evaluated), elapsed = _timed(offload.eval_nw, problems)
+    if route == offload.AUTO:
+        offload.tune_report("nw", elapsed,
+                            offload.host_estimate("nw", problems))
     stride = ops.shape[1]
     for rec, recs, base in per_rec:
         keep = np.flatnonzero(evaluated[base:base + len(recs)])
@@ -1408,12 +1448,15 @@ def _offload_endpoints(lib, round_recs, gen_seq_bytes: bytes) -> None:
 
 
 @_span("pintron_step2_rb_phase")
-def _offload_rb(lib, recs_c, gen_seq_bytes: bytes, config: Config) -> None:
+def _offload_rb(lib, recs_c, gen_seq_bytes: bytes, config: Config,
+                route: str) -> None:
     """Refine-borders phase of a chunk: collect FILTER 4's gap problems
     (a cascade replay on the warm K-band memo), evaluate both DP passes'
     row tables in one device batch, and pre-fill the tag-10 memo for
     the records whose two passes were both evaluated (the native cut
-    selection runs in ``epm_fill_rb``)."""
+    selection runs in ``epm_fill_rb``).  Under ``auto`` a batch under
+    ``offload.RB_MIN_BATCH`` problems is left to the host DP, and a
+    batch's time goes to the tuner."""
     per_rec = []
     problems = []
     for rec in recs_c:
@@ -1435,7 +1478,13 @@ def _offload_rb(lib, recs_c, gen_seq_bytes: bytes, config: Config) -> None:
         per_rec.append((rec, recs, base))
     if not problems:
         return
-    vals, pos, evaluated = offload.eval_rb(problems)
+    if route == offload.AUTO and len(problems) < offload.RB_MIN_BATCH:
+        offload.tally(rb_on_host=1)
+        return
+    (vals, pos, evaluated), elapsed = _timed(offload.eval_rb, problems)
+    if route == offload.AUTO:
+        offload.tune_report("rb", elapsed,
+                            offload.host_estimate("rb", problems))
     stride = vals.shape[1]
     for rec, recs, base in per_rec:
         fwd = base + 2 * np.arange(len(recs))
@@ -1456,12 +1505,14 @@ def _offload_rb(lib, recs_c, gen_seq_bytes: bytes, config: Config) -> None:
 
 @_span("pintron_step2_gap_collect")
 def _prep_introns(lib, recs_c, gen_seq_bytes: bytes, config: Config,
-                  pool):
+                  pool, route: str):
     """Gap-alignment phase of a chunk, part 1: collect every speculative
     gap problem of the chunk's refine-intron chains
     (``est_collect_introns``) and submit one device batch, on the
-    executor when there is one.  Returns (per_rec, pending batch), or
-    None when the chunk has no gap problem."""
+    executor when there is one.  Returns (per_rec, pending timed batch,
+    host estimate for the tuner or None), or None when the chunk has no
+    gap problem, or (under ``auto``) fewer than
+    ``offload.GAP_MIN_BATCH``, which the host DP computes."""
     per_rec = []
     problems = []
     for rec in recs_c:
@@ -1480,21 +1531,32 @@ def _prep_introns(lib, recs_c, gen_seq_bytes: bytes, config: Config,
         per_rec.append((rec, recs, arena, base))
     if not problems:
         return None
+    est = None
+    if route == offload.AUTO:
+        if len(problems) < offload.GAP_MIN_BATCH:
+            offload.tally(gap_on_host=1)
+            return None
+        est = offload.host_estimate("gap", problems)
     if pool is None:
-        return per_rec, ("done", offload.eval_gap(problems))
-    return per_rec, ("fut", pool.submit(offload.eval_gap, problems))
+        return per_rec, ("done", _timed(offload.eval_gap, problems)), est
+    return (per_rec, ("fut", pool.submit(_timed, offload.eval_gap, problems)),
+            est)
 
 
 @_span("pintron_step2_gap_wait")
 def _resolve_introns(prep) -> None:
-    """Part 2: wait for the chunk's gap batch and attach to each record
-    its evaluated windows' results, which ``run_cascade`` installs in
+    """Part 2: wait for the chunk's gap batch (its time goes to the
+    tuner under ``auto``) and attach to each record its evaluated
+    windows' results, which ``run_cascade`` installs in
     the lookaside around the record's cascade.  A window left out
     misses the lookaside and the cascade computes it on the host."""
     if prep is None:
         return
-    per_rec, (kind, val) = prep
-    sm, ops, nsteps, evaluated = val if kind == "done" else val.result()
+    per_rec, (kind, val), est = prep
+    (sm, ops, nsteps, evaluated), elapsed = (val if kind == "done"
+                                             else val.result())
+    if est is not None:
+        offload.tune_report("gap", elapsed, est)
     stride = ops.shape[1]
     for rec, recs, arena, base in per_rec:
         keep = np.flatnonzero(evaluated[base:base + len(recs)])
@@ -1880,13 +1942,17 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
     service set (``PINTRON_TORCH_SERVICE``) the batches go to the
     service, and a locus of at least ``FORK_MIN_RECORDS`` records is
     sharded over ``PINTRON_EST_WORKERS`` fork workers (default: one per
-    core).  With ``"host"`` the units run on the fork pool of
-    ``PINTRON_EST_WORKERS`` workers (sequentially with one)."""
+    core); ``PINTRON_DEVICE_{KBAND,NW,GAP,RB}`` route each family (see
+    the module docstring; a value other than unset, ``1``, ``0`` or
+    ``auto`` raises ValueError here).  With ``"host"`` the units run on
+    the fork pool of ``PINTRON_EST_WORKERS`` workers (sequentially with
+    one)."""
     for var, use in (("PINTRON_DEVICE", "the `device` argument"),
                      ("PINTRON_DEVICE_MESH", offload.MESH_ENV)):
         if os.environ.get(var):
             raise RuntimeError(f"{var} is set: it is the JAX package's "
                                f"switch.  Unset it; the port uses {use}")
+    routes = offload.family_routes()
     host = offload.is_host(device)
     if not host:
         device = offload.use_device(device)
@@ -1943,7 +2009,7 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
                             nworkers, fresh)
     else:
         results = _run_device(gen, gen_seq_bytes, config, wpath("ests.txt"),
-                              nworkers, fresh, device)
+                              nworkers, fresh, device, routes)
     timers["algorithm"].stop()
     checkpoint("alignment-end")
 
@@ -1985,9 +2051,10 @@ def _run_host(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
 
 def _run_device(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
                 ests_path: str, nworkers: int, fresh: bool,
-                device: torch.device):
+                device: torch.device, routes: dict):
     """The device flow, in this process or sharded over fork workers
-    through the service; logs the ``est-fact device flow:`` line."""
+    through the service; logs the ``est-fact device flow:`` line, with
+    each family's route and the tuner's latches after the run."""
     dp_census_reset()
     cells0 = offload.STATS["device_cells"]
     with open(ests_path) as fh:
@@ -2016,6 +2083,7 @@ def _run_device(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
              "mesh": None if offload.service_socket() else offload.mesh_size(),
              "stats": offload.STATS, "launches": kband.LAUNCHES,
              "host_dp_cells": host_cells,
+             "routes": routes, "latches": offload.latches(),
              "device_cell_share": dev_cells / total if total else 0.0},
             sort_keys=True))
     return results

@@ -16,9 +16,11 @@ the five STEP 2 artifacts (``regression.STAGE2_ARTIFACTS``) with the
 golden's.  ``--device`` is ``cuda`` by default, as every entry point of
 the port, and raises without a card; ``cpu`` runs the plain PyTorch
 ops, ``host`` the native host path.  A ``cuda`` or ``cpu`` run in which
-no problem of some family (K-band, NW, gap, refine-borders) reached the
-device fails with "no problem reached the device": the JAX tool's guard
-against a run that fell back to the CPU.
+no problem of some family (K-band, NW, gap, refine-borders) routed to
+the card reached the device fails with "no problem reached the device":
+the JAX tool's guard against a run that fell back to the CPU.  Every
+family is routed to the card unless its ``PINTRON_DEVICE_<F>`` is ``0``
+or ``auto`` (``ops.offload.family_routes``).
 
 Each locus prints one line: ESTs, seconds, ESTs/s, the offload's
 counters per family and the kernel launches (``ops.kband.LAUNCHES``;
@@ -118,8 +120,13 @@ def check_case(case: str, device="cuda") -> dict:
                host_cells=dp_census() or {})
     bad = differing(gold, work, [n for n in STAGE2_ARTIFACTS
                                  if os.path.exists(os.path.join(gold, n))])
+    # a family routed to the card (offload.family_routes: forced) must
+    # have sent problems; one at 0 or under the tuner need not
+    forced = [fam for fam, route in offload.family_routes().items()
+              if route == offload.CARD]
     if not offload.is_host(device) and (
-            stats["device_runs"] == 0 or min(res["families"].values()) <= 0):
+            stats["device_runs"] == 0
+            or min((res["families"][f] for f in forced), default=1) <= 0):
         bad.append(NO_DEVICE)
     res.update(status="FAIL" if bad else "OK", differs=bad)
     if bad:

@@ -25,9 +25,13 @@ CHANNEL_KEYS = ("device_kband_kernel_cells_per_s",
                 "device_kband_kernel_vs_plain", "device_kband_bound_share",
                 "device_card", "device_mode_ests_per_s",
                 "device_mode_problems_offloaded", "device_cell_fraction",
-                "host_cells_by_family", "stress_device_ests_per_s",
+                "host_cells_by_family", "device_mode_latches",
+                "device_mode_forced_ests_per_s",
+                "device_mode_forced_problems_offloaded",
+                "device_cell_fraction_forced", "stress_device_ests_per_s",
                 "stress_cpu_ests_per_s", "stress_device_vs_cpu",
-                "stress_device_problems")
+                "stress_device_problems",
+                "stress_device_kband_only_ests_per_s")
 
 
 @pytest.fixture
@@ -62,8 +66,12 @@ def test_bench_on_ambn_prints_one_json_line(capsys, one_thread):
     assert out["device"] == "cpu" and out["device_card"] == "cpu"
     assert out["value"] > 0 and out["host_ests_per_s"] > 0
     assert out["device_kband_max_abs_err"] == 0
-    assert out["device_mode_problems_offloaded"] > 0
-    assert 0 < out["device_cell_fraction"] < 1
+    # the forced run's; the auto run's keys (the JAX bench's unsuffixed
+    # ones) carry what the tuner kept on the card
+    assert out["device_mode_forced_problems_offloaded"] > 0
+    assert 0 < out["device_cell_fraction_forced"] < 1
+    assert 0 <= out["device_cell_fraction"] < 1
+    assert sorted(out["device_mode_latches"]) == ["gap", "kband", "nw", "rb"]
     assert out["stress_case"] == [20000, 30, 4000]
     assert out["stress_device_problems"] > 0
     assert "device_channels_error" not in out
