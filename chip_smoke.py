@@ -20,7 +20,13 @@ failure (so the script exits non-zero and never prints its last line):
      2 gives nw_kernel (pintron_tpu_torch.measure_nw), the 8 it gives
      gap_kernel (pintron_tpu_torch.measure_gap) and the 24 it gives
      rowmin_kernel (pintron_tpu_torch.measure_rowmin; rowmin on its
-     live rows), and pwm_kernel bit for bit on seeded windows (N bases,
+     live rows), the 31 launches STEP 2 gives nw_kernel on 788,
+     issue-2, issue-13 and gtf5, whose endpoint problems over the JAX
+     package's traceback bound go to the card
+     (measure_nw.OVERSIZED_NW_SHAPES; the call and the card-alone time
+     beside the problems a launch, the bound and the chain floor, summed
+     under "oversized" in nw_kernel's JSON entry), and pwm_kernel bit
+     for bit on seeded windows (N bases,
      codes outside 0..3, B = 1 and B not a multiple of 32, the issue-13
      sweep's shape (8425, 12)); times of each (CUDA events) at the
      shapes the main path gives it, edit_score_kernel's at the STEP 4
@@ -93,8 +99,10 @@ failure (so the script exits non-zero and never prints its last line):
      inputs (788, AMBN, CPB2, TP53, issue-2, issue-13, mattia1, mattia3,
      gtf5) through pintron_tpu_torch.tools.check_stage2.check_case,
      each byte-identical to golden with every family's problems on the
-     card and every STEP 2 kernel launched, one line a locus with its
-     ESTs/s and one with its routes (the widest K-band budget,
+     card, every STEP 2 kernel launched and no problem left to the host
+     for its size (every offload <family>_too_wide 0), one line a locus
+     with its ESTs/s and device share of the DP cells and one with its
+     routes (the widest K-band budget,
      full-matrix launches, the NW, gap and refine-borders buckets and
      their passes, the host DP cells beside the device cells); then
      the 9 through one python -m pintron_tpu_torch.batch --device cuda
@@ -351,7 +359,54 @@ def phase_traceback_kernels(dev, gpu, clock):
         errs[key] = max(errs[key], main_path_launches(key, dev, gpu, clock,
                                                       times))
     run_tb("gap", 788, 64, 256)
+    errs["nw"] = max(errs["nw"], oversized_nw_launches(dev, gpu, clock,
+                                                       times))
     return errs, times
+
+
+def oversized_nw_launches(dev, gpu, clock, times):
+    """nw_kernel at the launches STEP 2 gives it on 788, issue-2,
+    issue-13 and gtf5 (measure_nw.OVERSIZED_NW_SHAPES: the loci whose
+    endpoint problems over the JAX package's bound go to the card), each
+    equal to the plain version on every problem (score, ops and steps),
+    its call and its time on the card alone beside its problems, bound
+    and chain floor on a line; times["nw_oversized"] gets the sums.
+    Returns the largest difference from the plain version."""
+    from pintron_tpu_torch.measure_nw import (OVERSIZED_NW_SHAPES,
+                                              main_path_nw_batch, nw_bound)
+    from pintron_tpu_torch.ops import align, traceback
+    kernel = traceback.batch_nw_traceback_cuda
+    total = dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms",
+                           "chain_floor_ms"), 0.0)
+    err = 0
+    for i, shape in enumerate(OVERSIZED_NW_SHAPES):
+        est, elen, gen, glen, N, M = main_path_nw_batch(shape, i)
+        args = from_numpy_batch(est, elen, gen, glen, device=dev)
+        kw = dict(max_n=N, max_m=M)
+        err = max(err, compare_all("nw", kernel(*args, **kw),
+                                   align.batch_nw_traceback(*args, **kw)))
+        row = {"ms": cuda_ms(lambda: kernel(*args, **kw), 5),
+               "device_ms": device_ms(lambda: kernel(*args, **kw), 5),
+               "plain_ms": cuda_ms(
+                   lambda: align.batch_nw_traceback(*args, **kw), 1)}
+        row["bound_ms"], by, row["chain_floor_ms"] = nw_bound(elen, glen,
+                                                              clock)
+        for k, v in row.items():
+            total[k] += v
+        print(f"nw oversized {shape[0]} ({shape[1]} problems a launch, "
+              f"bucket ({N}, {M}), longest {int(elen.max())} x "
+              f"{int(glen.max())}): kernel {row['ms']:.4f} ms, on the card "
+              f"alone {row['device_ms']:.4f} ms, plain {row['plain_ms']:.3f} "
+              f"ms, bound {row['bound_ms']:.5f} ms ({by}), chain floor "
+              f"{row['chain_floor_ms']:.5f} ms  [{gpu}]", flush=True)
+    times["nw_oversized"] = dict(total, launches=len(OVERSIZED_NW_SHAPES))
+    print(f"nw: the {len(OVERSIZED_NW_SHAPES)} launches of 788, issue-2, "
+          f"issue-13 and gtf5 == plain on every problem; kernel "
+          f"{total['ms']:.4f} ms in all, on the card alone "
+          f"{total['device_ms']:.4f} ms, plain {total['plain_ms']:.3f} ms, "
+          f"bound {total['bound_ms']:.5f} ms, chain floor "
+          f"{total['chain_floor_ms']:.5f} ms  [{gpu}]", flush=True)
+    return err
 
 
 def main_path_launches(key, dev, gpu, clock, times):
@@ -719,7 +774,9 @@ def offload_problem_mix(rng):
 def pair_mix(rng):
     """(est_window, gen_window) problems of every offload route: e == g,
     gen as est with an intron inserted, unrelated pairs, N/n wildcards,
-    several buckets, and one oversized pair left to the host."""
+    several buckets, one pair over the JAX package's bound (2^21 cells)
+    that the kernels take, and one wider than the kernels' MAX_WIDTH,
+    left to the host."""
     alpha = np.array(list("ACGTNn"))
     probs = []
     for i in range(240):
@@ -736,6 +793,8 @@ def pair_mix(rng):
         probs.append((e, g))
     probs.append(("".join(rng.choice(alpha[:4], 2500)),
                   "".join(rng.choice(alpha[:4], 2500))))
+    probs.append(("".join(rng.choice(alpha[:4], 200)),
+                  "".join(rng.choice(alpha[:4], 17000))))
     return probs
 
 
@@ -749,7 +808,9 @@ def check_family_mix(offload, probs):
     from pintron_tpu_torch.ops.align import (gap_traceback_decode,
                                              nw_traceback_decode)
     raw = [(e.encode(), g.encode()) for e, g in probs]
-    small = [len(e) * len(g) <= 1 << 21 for e, g in probs]
+    small = [offload.traceback_fits(e, g) for e, g in raw]
+    if all(small):
+        raise AssertionError("the mix has no problem over the bound")
     ops, nsteps, ev = offload.eval_nw(raw)
     if ev.tolist() != small:
         raise AssertionError("eval_nw: wrong problems evaluated")
@@ -1491,9 +1552,13 @@ def phase_sweep(gpu, device="cuda"):
         if idle:
             raise AssertionError(f"{case}: STEP 2 left {idle} unlaunched: "
                                  f"{res['launches']}")
+        if any(res["too_wide"].values()):
+            raise AssertionError(f"{case}: problems left to the host for "
+                                 f"their size: {res['too_wide']}")
         loci[case] = {k: res[k] for k in ("ests", "seconds", "ests_per_s",
                                           "families", "launches", "buckets",
-                                          "host_cells")}
+                                          "host_cells", "device_share",
+                                          "too_wide")}
         loci[case].update(kband_ub_max=res["stats"]["kband_ub_max"],
                           device_cells=res["stats"]["device_cells"])
     step2_s = time.perf_counter() - t0
@@ -1692,6 +1757,8 @@ def main() -> int:
         ms, pms, b_ms, by, _chain, *lib = times[key]
         extra = ({"device_ms": lib[1], "library_device_ms": lib[2]}
                  if len(lib) > 1 else {})
+        if key == "nw":
+            extra["oversized"] = times["nw_oversized"]
         kernels.append({
             "name": f"{key}_kernel", "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,

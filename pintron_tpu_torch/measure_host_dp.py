@@ -3,7 +3,7 @@ card's machine: the host DP's seconds a cell for each STEP 2 family,
 the card's call floor, and the small-batch gates of rb and gap.
 
     python -m pintron_tpu_torch.measure_host_dp [--reps 5] \
-        [--floor-calls 200] [--device cuda] [--out FILE]
+        [--floor-calls 200] [--device cuda] [--nw-shapes] [--out FILE]
 
 1. Problems: STEP 2 on TP53 and issue-13 (``tests/golden/``) on
    ``--device`` with every family on it (one process, fresh memo,
@@ -25,6 +25,12 @@ the card's call floor, and the small-batch gates of rb and gap.
 4. The gates: for rb and gap, the fewest problems whose host estimate at
    the family's mean recorded cells a problem reaches the slowest
    family's call floor.
+
+With ``--nw-shapes`` it does only this instead: each launch of
+``measure_nw.OVERSIZED_NW_SHAPES`` (the NW launches of 788, issue-2,
+issue-13 and gtf5), the seeded batch that ``chip_smoke.py`` phase 3
+gives ``nw_kernel``, through ``nw_align_run`` in this thread, best of
+``--reps`` sweeps (default ``chiprun_out/host_dp_nw_shapes.json``).
 
 Prints the CPU model (``/proc/cpuinfo``) and the card's name and power
 limit beside the numbers, and writes them as JSON (default
@@ -178,19 +184,49 @@ def smallest(family: str, problems):
     return min(cands, key=lambda p: offload.tune_cells(family, [p]))
 
 
+def oversized_nw(lib, reps: int, card: str, cpu: str) -> dict:
+    """The host's seconds for each OVERSIZED_NW_SHAPES launch's seeded
+    batch (``measure_nw.main_path_nw_batch``, as phase 3 makes it),
+    best of ``reps`` sweeps of ``nw_align_run``."""
+    from pintron_tpu_torch.measure_nw import (OVERSIZED_NW_SHAPES,
+                                              main_path_nw_batch)
+    rows = []
+    for i, shape in enumerate(OVERSIZED_NW_SHAPES):
+        est, elen, gen, glen, _N, _M = main_path_nw_batch(shape, i)
+        problems = [(est[b, :elen[b]].tobytes(), gen[b, :glen[b]].tobytes())
+                    for b in range(len(elen))]
+        best = min(host_seconds(lib, "nw", problems) for _ in range(reps))
+        cells = offload.tune_cells("nw", problems)
+        rows.append({"shape": shape, "host_s": best, "cells": cells})
+        print(f"nw oversized {shape[0]} ({shape[1]} problems, bucket "
+              f"({shape[2]}, {shape[3]})): host {best * 1e3:.3f} ms for "
+              f"{cells} cells  [{card}; {cpu}]", flush=True)
+    total = sum(r["host_s"] for r in rows)
+    print(f"nw oversized: the {len(rows)} launches' problems on the host "
+          f"in {total * 1e3:.3f} ms  [{card}; {cpu}]", flush=True)
+    return {"card": card, "cpu": cpu, "reps": reps, "host_s": total,
+            "launches": rows}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--floor-calls", type=int, default=200)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
-                                                 "host_dp.json"))
+    p.add_argument("--nw-shapes", action="store_true",
+                   help="time only OVERSIZED_NW_SHAPES' batches on the host")
+    p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     device = offload.use_device(args.device)
     from pintron_tpu_torch.native import get_lib
     lib = get_lib()
     card = card_line() if device.type == "cuda" else "cpu"
     cpu = cpu_model()
+    if args.nw_shapes:
+        out = oversized_nw(lib, args.reps, card, cpu)
+        return _write(out, args.out or os.path.join(
+            REPO, "chiprun_out", "host_dp_nw_shapes.json"))
+    args.out = args.out or os.path.join(REPO, "chiprun_out", "host_dp.json")
     os.environ["PINTRON_FRESH_MEMO"] = "1"
     for fam in offload.FAMILIES:
         if os.environ.get(offload.family_env(fam)):
@@ -246,10 +282,14 @@ def main(argv=None) -> int:
     print(f"call floor {floor * 1e3:.4f} ms (the slowest family's median); "
           f"small-batch gates {out['min_batch']}  [{card}; {cpu}]",
           flush=True)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
+    return _write(out, args.out)
+
+
+def _write(out: dict, path: str) -> int:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"wrote {args.out}")
+    print(f"wrote {path}")
     return 0
 
 

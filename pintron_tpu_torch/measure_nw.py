@@ -19,6 +19,13 @@ card alone (``measure_kband.device_ms``).  Writes
 ``chiprun_out/nw_measure.json`` by default and prints one line per
 shape.  ``chip_smoke.py`` takes the shapes, the batch maker and the
 bound from here.
+
+    python -m pintron_tpu_torch.measure_nw --record [--device cpu]
+        [case ...]
+
+prints the NW launches STEP 2 makes on golden cases (by default
+OVERSIZED_NW_CASES), in MAIN_PATH_NW_SHAPES' form: how
+OVERSIZED_NW_SHAPES was recorded.
 """
 
 from __future__ import annotations
@@ -45,7 +52,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #  median est, median gen): the 21 NW launches of STEP 2 with a fresh
 # memo (PINTRON_FRESH_MEMO=1), recorded from the offload's groups on the
 # two loci; a launch of one problem, and the two whose medians were not
-# recorded, carry their longest as the median
+# recorded, carry their longest as the median.  They were recorded under
+# the JAX package's traceback bound: since the kernels' own bound,
+# issue-13's (4096, 4096) launch holds 18 problems of up to 2421 x 2421
+# (OVERSIZED_NW_SHAPES has its launches as they are now)
 MAIN_PATH_NW_SHAPES = (
     ("TP53", 15, 64, 64, 64, 63, 51, 53),
     ("TP53", 1, 256, 64, 66, 64, 66, 64),
@@ -68,6 +78,47 @@ MAIN_PATH_NW_SHAPES = (
     ("issue-13", 256, 256, 256, 255, 255, 146, 145),
     ("issue-13", 1, 1024, 256, 262, 256, 262, 256),
     ("issue-13", 220, 1024, 1024, 890, 893, 435, 435),
+)
+
+# The NW launches of STEP 2 on the four loci whose endpoint problems the
+# JAX package's traceback bound (2^21 cells, 8192 in length) left to the
+# host and the kernels' bound (offload.TRACEBACK_BOUND) sends to the card,
+# in the same form, recorded with device="cpu" and a fresh memo by
+# ``python -m pintron_tpu_torch.measure_nw --record``
+OVERSIZED_NW_CASES = ("test-788", "test-issue-2", "test-issue-13",
+                      "test_gtf5")
+OVERSIZED_NW_SHAPES = (
+    ("788", 14, 4096, 4096, 3128, 3128, 2862, 2862),
+    ("788", 5, 1024, 1024, 690, 690, 518, 518),
+    ("issue-2", 14, 64, 64, 55, 55, 49, 49),
+    ("issue-2", 3, 64, 256, 62, 70, 61, 69),
+    ("issue-2", 1, 256, 64, 76, 62, 76, 62),
+    ("issue-2", 21, 256, 256, 207, 207, 89, 83),
+    ("issue-2", 15, 1024, 1024, 804, 804, 691, 691),
+    ("issue-2", 1, 4096, 4096, 2249, 2249, 2249, 2249),
+    ("issue-2", 4, 16384, 16384, 4202, 4202, 4183, 4183),
+    ("issue-2", 1, 64, 64, 62, 63, 62, 63),
+    ("issue-2", 8, 256, 256, 232, 232, 192, 192),
+    ("issue-2", 24, 1024, 1024, 586, 586, 345, 343),
+    ("issue-13", 82, 64, 64, 63, 61, 54, 53),
+    ("issue-13", 15, 64, 256, 61, 65, 61, 65),
+    ("issue-13", 2, 256, 64, 66, 60, 65, 59),
+    ("issue-13", 70, 256, 256, 255, 255, 114, 114),
+    ("issue-13", 64, 1024, 1024, 949, 949, 418, 419),
+    ("issue-13", 18, 4096, 4096, 2421, 2421, 1453, 1454),
+    ("issue-13", 91, 64, 64, 64, 64, 51, 51),
+    ("issue-13", 1, 64, 256, 64, 65, 64, 65),
+    ("issue-13", 1, 256, 64, 65, 64, 65, 64),
+    ("issue-13", 256, 256, 256, 255, 255, 145, 145),
+    ("issue-13", 1, 1024, 256, 262, 256, 262, 256),
+    ("issue-13", 220, 1024, 1024, 890, 893, 433, 434),
+    ("gtf5", 5, 64, 64, 57, 57, 49, 50),
+    ("gtf5", 25, 256, 256, 256, 256, 131, 131),
+    ("gtf5", 31, 1024, 1024, 729, 730, 485, 486),
+    ("gtf5", 6, 4096, 4096, 1666, 1667, 1666, 1666),
+    ("gtf5", 12, 64, 64, 64, 64, 45, 44),
+    ("gtf5", 62, 256, 256, 253, 253, 141, 142),
+    ("gtf5", 283, 1024, 1024, 885, 885, 497, 497),
 )
 
 # integer operations a cell: the match test with its wildcards, the diag,
@@ -294,8 +345,49 @@ def measure_main(argv, *, key: str, doc: str, shapes, make_batch,
     return 0
 
 
+def record_nw_shapes(cases, device="cpu") -> list:
+    """The NW launches STEP 2 makes on the golden ``cases``
+    (``check_stage2.check_case``: fresh memo, byte-checked), in
+    MAIN_PATH_NW_SHAPES' form, in launch order."""
+    from pintron_tpu_torch.ops import offload
+    from pintron_tpu_torch.tools.check_stage2 import check_case
+    real = offload.batch_nw_traceback_cuda
+    shapes = []
+
+    for case in cases:
+        locus = case.split("-", 1)[-1].split("_", 1)[-1]
+
+        def recorder(est, elen, gen, glen, *, max_n, max_m):
+            e, g = elen.cpu().numpy(), glen.cpu().numpy()
+            shapes.append((locus, len(e), max_n, max_m, int(e.max()),
+                           int(g.max()), int(np.median(e)),
+                           int(np.median(g))))
+            return real(est, elen, gen, glen, max_n=max_n, max_m=max_m)
+
+        offload.batch_nw_traceback_cuda = recorder
+        try:
+            res = check_case(case, device)
+        finally:
+            offload.batch_nw_traceback_cuda = real
+        if res["status"] != "OK":
+            raise AssertionError(f"{case}: {res['differs']}")
+    return shapes
+
+
 def main(argv=None) -> int:
     from pintron_tpu_torch.ops import align, traceback
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--record"]:
+        p = argparse.ArgumentParser(
+            prog="measure_nw --record",
+            description="print the NW launches STEP 2 makes on golden "
+                        "cases, in MAIN_PATH_NW_SHAPES' form")
+        p.add_argument("cases", nargs="*", default=OVERSIZED_NW_CASES)
+        p.add_argument("--device", default="cpu")
+        args = p.parse_args(argv[1:])
+        for shape in record_nw_shapes(args.cases, args.device):
+            print(f"    {shape!r},")
+        return 0
     return measure_main(
         argv, key="nw", doc=__doc__, shapes=MAIN_PATH_NW_SHAPES,
         make_batch=main_path_nw_batch, bound_fn=nw_bound,

@@ -250,7 +250,8 @@ def _build_and_load():
             #   pre_off, pre_f, pre_n
             + [ctypes.c_void_p, ctypes.c_int64]    # recs_out (13/i64), cap
             + [ctypes.c_void_p, ctypes.c_int64]    # arena, arena_cap
-            + [ctypes.c_void_p])                   # meta[2]: need, arena
+            + [ctypes.c_void_p])                   # meta[3]: need, arena,
+        #   windows over the bound
         lib.ri_lookaside_set.restype = ctypes.c_int64
         lib.ri_lookaside_set.argtypes = (
             [ctypes.c_void_p, ctypes.c_int64]      # records (13/i64), n
@@ -260,6 +261,13 @@ def _build_and_load():
             + [ctypes.c_int64])                    # ops row stride
         lib.ri_lookaside_clear.restype = None
         lib.ri_lookaside_clear.argtypes = []
+        lib.ri_dev_set_bounds.restype = None
+        lib.ri_dev_set_bounds.argtypes = [ctypes.c_int64, ctypes.c_int64]
+        #   the widest est and gen windows the gap collect emits
+    lib.ep_nw_miss_get.restype = None
+    lib.ep_nw_miss_get.argtypes = [ctypes.c_void_p]
+    lib.ep_nw_miss_reset.restype = None
+    lib.ep_nw_miss_reset.argtypes = []
     lib.unit_process.restype = ctypes.c_int64
     lib.unit_process.argtypes = (
         [ctypes.c_char_p, ctypes.c_int64]        # tree text
@@ -337,6 +345,34 @@ def dp_census_reset() -> None:
     lib = get_lib()
     if lib is not None and hasattr(lib, "dp_census_reset"):
         lib.dp_census_reset()
+
+
+# ep_nw_miss's sites and kinds (dp.c)
+NW_MISS_SITES = ("noisy_collect", "gaps_collect", "introns_collect",
+                 "cascade")
+NW_MISS_KINDS = ("head", "tail", "single_tail")
+
+
+def ep_nw_misses():
+    """The endpoint cut's host NW alignments that missed the tag-1/2
+    memo since the last reset (dp.c ``ep_nw_miss``): {(site, kind):
+    (alignments, cells)} over NW_MISS_SITES x NW_MISS_KINDS, and the
+    memo's wipes under "wipes"."""
+    import numpy as np
+    lib = get_lib()
+    out = np.zeros(len(NW_MISS_SITES) * len(NW_MISS_KINDS) * 2 + 1,
+                   dtype=np.int64)
+    lib.ep_nw_miss_get(out.ctypes.data)
+    counts = out[:-1].reshape(len(NW_MISS_SITES), len(NW_MISS_KINDS), 2)
+    res = {(site, kind): tuple(int(v) for v in counts[i, j])
+           for i, site in enumerate(NW_MISS_SITES)
+           for j, kind in enumerate(NW_MISS_KINDS)}
+    res["wipes"] = int(out[-1])
+    return res
+
+
+def ep_nw_misses_reset() -> None:
+    get_lib().ep_nw_miss_reset()
 
 
 def np_scratch(key: str, n: int):

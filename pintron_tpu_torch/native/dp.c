@@ -46,6 +46,34 @@ void dp_census_reset(void) {
     for (i = 0; i < 5; i++) dp_census[i] = 0;
 }
 
+/* ---- endpoint-memo misses ---------------------------------------------
+ * The host NW alignments of the endpoint cut (ep_handle_endpoints) that
+ * missed the tag-1/2 memo, where the device flow pre-fills it: by the
+ * entry point whose cascade ran the cut (ep_site: EP_SITE_NOISY
+ * est_collect_noisy, EP_SITE_GAPS est_collect_gaps, EP_SITE_INTRONS
+ * est_collect_introns, EP_SITE_CASCADE est_process and
+ * est_process_cands) and the kind (0 the head, 1 the tail of a
+ * multi-factor candidate, 2 the tail of a one-factor candidate, which
+ * the head cut may have moved), {alignments, cells as dp_census
+ * counts them}; ep_nw_wipes counts the memo's wipes.  Per-process,
+ * non-atomic, as dp_census. */
+enum { EP_SITE_NOISY, EP_SITE_GAPS, EP_SITE_INTRONS, EP_SITE_CASCADE,
+       EP_SITES };
+static int ep_site = EP_SITE_CASCADE;
+static int64_t ep_nw_miss[EP_SITES][3][2];
+static int64_t ep_nw_wipes = 0;
+
+/* out: EP_SITES * 3 * 2 counts (site-major), then the wipes */
+void ep_nw_miss_get(int64_t *out) {
+    memcpy(out, ep_nw_miss, sizeof(ep_nw_miss));
+    out[EP_SITES * 3 * 2] = ep_nw_wipes;
+}
+
+void ep_nw_miss_reset(void) {
+    memset(ep_nw_miss, 0, sizeof(ep_nw_miss));
+    ep_nw_wipes = 0;
+}
+
 static int64_t kband_core_wide(const char *seq1, int64_t n,
                                const char *seq2, int64_t m, int64_t k) {
     int64_t w = 2 * k + 1;
@@ -4209,6 +4237,7 @@ static int64_t epm_fill = 0;
 static void epm_wipe(void) {
     epm_gen++;
     epm_fill = 0;
+    ep_nw_wipes++;
 }
 
 /* ---- persistent sequence registry --------------------------------------
@@ -4476,6 +4505,15 @@ static void ep_tail_cut(char *est_al, char *gen_al, int64_t alen,
     }
 }
 
+/* one memo miss of the endpoint cut (ep_nw_miss) */
+static void ep_count_miss(int kind, const char *ee, int64_t eel,
+                          const char *ge, int64_t gel) {
+    int64_t *c = ep_nw_miss[ep_site][kind];
+    c[0]++;
+    if (!(eel == gel && memcmp(ee, ge, (size_t)eel) == 0))
+        c[1] += (eel + 1) * (gel + 1);
+}
+
 /* filters.py:handle_endpoints (est-factorizations.c:2127-2301).
  * Returns 0 on allocation failure. */
 static int ep_handle_endpoints(efct *f, const char *gen, int64_t glen,
@@ -4485,6 +4523,7 @@ static int ep_handle_endpoints(efct *f, const char *gen, int64_t glen,
     char *est_al, *gen_al;
     int64_t out_len[1];
     efac *head = &f->f[0];
+    int tail_kind = f->n == 1 ? 2 : 1;
 
     {
         uint64_t mk[7] = {0, 0, 0, 0, 0, 0, 0};
@@ -4498,6 +4537,7 @@ static int ep_handle_endpoints(efct *f, const char *gen, int64_t glen,
         } else {
             gel = rs_sub(gen, glen, head->gs, head->ge - head->gs + 1, &ge);
             eel = rs_sub(est, elen, head->es, head->ee - head->es + 1, &ee);
+            ep_count_miss(0, ee, eel, ge, gel);
             est_al = ep_cbuf(0, eel + gel + 8);
             gen_al = ep_cbuf(1, eel + gel + 8);
             if (!est_al || !gen_al) {
@@ -4545,6 +4585,7 @@ static int ep_handle_endpoints(efct *f, const char *gen, int64_t glen,
         }
         gel = rs_sub(gen, glen, tail->gs, tail->ge - tail->gs + 1, &ge);
         eel = rs_sub(est, elen, tail->es, tail->ee - tail->es + 1, &ee);
+        ep_count_miss(tail_kind, ee, eel, ge, gel);
         est_al = ep_cbuf(0, eel + gel + 8);
         gen_al = ep_cbuf(1, eel + gel + 8);
         if (!est_al || !gen_al) {
@@ -6666,7 +6707,11 @@ int64_t est_collect_noisy(
         is_ok = ep_check_not_ss(&f, est_length);
         if (is_ok) is_ok = ep_check_exon_start_end(&f);
         if (is_ok) {
-            if (!ep_handle_endpoints(&f, gen, glen, est, elen)) {
+            int ok_ep;
+            ep_site = EP_SITE_NOISY;
+            ok_ep = ep_handle_endpoints(&f, gen, glen, est, elen);
+            ep_site = EP_SITE_CASCADE;
+            if (!ok_ep) {
                 efct_free(&f);
                 goto fail;
             }
@@ -7047,14 +7092,24 @@ int64_t epm_fill_rb(
  * Records are 13 int64s: {d_es, d_ee, d_gs, d_ge, a_es, a_ee, a_gs,
  * a_ge, first, est_arena_off, n, gen_arena_off, m}; window bytes live
  * in the arena. */
-#define RI_DEV_MAX_CELLS (1 << 21)
-#define RI_DEV_MAX_LEN 8192
+/* A window goes to the device batch when its est side is at most
+ * ri_dev_max_n and its gen side at most ri_dev_max_m: the gap family's
+ * bound, which the device flow sets (ri_dev_set_bounds) before it
+ * collects.  Until then both are 0 and no window is collected. */
+static int64_t ri_dev_max_n = 0, ri_dev_max_m = 0;
+
+void ri_dev_set_bounds(int64_t max_n, int64_t max_m) {
+    ri_dev_max_n = max_n;
+    ri_dev_max_m = max_m;
+}
+
 typedef struct {
     int64_t *out;
     char *arena;
     int64_t cap, arena_cap;
     int64_t n, arena_n;
     int64_t need, arena_need;
+    int64_t too_wide;   /* windows over the bound, left to the host */
     int active;
 } ri_sink_t;
 static ri_sink_t ri_sink;
@@ -7395,8 +7450,8 @@ static int64_t est_process_impl(
                         first = 0;
                         continue;
                     }
-                    if (w.n * w.m > RI_DEV_MAX_CELLS
-                        || w.n + w.m > RI_DEV_MAX_LEN) {
+                    if (w.n > ri_dev_max_n || w.m > ri_dev_max_m) {
+                        ri_sink.too_wide++;
                         first = 0;
                         continue;   /* host computes oversized lazily */
                     }
@@ -7662,13 +7717,17 @@ int64_t est_collect_gaps(
     const int64_t *pre_off, const int64_t *pre_f, int64_t pre_n,
     int64_t *gaps_out, int64_t gaps_cap, int64_t *gaps_meta) {
     int64_t counts[4] = {0, 0, 0, 0};
-    return est_process_impl(
+    int64_t r;
+    ep_site = EP_SITE_GAPS;
+    r = est_process_impl(
         vp, vt, vl, vcol, adj_off, adj, nv, ncols, gen, glen, est, elen,
         est_orig, eolen, min_factor_len, min_intron_length, deadline,
         complexity_threshold, max_site_difference, max_coverage_diff,
         max_gapLength_diff, max_number_of_factorizations, sp_est,
         sp_intron, sp_gen, NULL, NULL, NULL, NULL, 0, 0, counts,
         pre_off, pre_f, pre_n, gaps_out, gaps_cap, gaps_meta);
+    ep_site = EP_SITE_CASCADE;
+    return r;
 }
 
 /* Collect pass for the intron-refinement (gap-alignment) offload:
@@ -7679,7 +7738,8 @@ int64_t est_collect_gaps(
  * est-factorizations.c:444-492 -> refine-intron.c:47-265).
  * Returns the record count, or -2 when caps are too small
  * (meta[0] = records needed, meta[1] = arena bytes needed), or any
- * other negative est_process error. */
+ * other negative est_process error; meta[2] = the windows left to the
+ * host for their size (ri_dev_set_bounds). */
 int64_t est_collect_introns(
     const int64_t *vp, const int64_t *vt, const int64_t *vl,
     const int64_t *vcol, const int64_t *adj_off, const int64_t *adj,
@@ -7705,7 +7765,9 @@ int64_t est_collect_introns(
     ri_sink.arena_n = 0;
     ri_sink.need = 0;
     ri_sink.arena_need = 0;
+    ri_sink.too_wide = 0;
     ri_sink.active = 1;
+    ep_site = EP_SITE_INTRONS;
     r = est_process_impl(
         vp, vt, vl, vcol, adj_off, adj, nv, ncols, gen, glen, est, elen,
         est_orig, eolen, min_factor_len, min_intron_length, deadline,
@@ -7714,8 +7776,10 @@ int64_t est_collect_introns(
         sp_intron, sp_gen, NULL, NULL, NULL, NULL, 0, 0, counts,
         pre_off, pre_f, pre_n, NULL, 0, NULL);
     ri_sink.active = 0;
+    ep_site = EP_SITE_CASCADE;
     meta[0] = ri_sink.need;
     meta[1] = ri_sink.arena_need;
+    meta[2] = ri_sink.too_wide;
     return r;
 }
 

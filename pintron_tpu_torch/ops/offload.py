@@ -55,7 +55,9 @@ from pintron_tpu_torch.ops.pwm import pwm_scores_cuda
 from pintron_tpu_torch.ops.traceback import (MAX_WIDTH,
                                              batch_edit_rowmin_cuda,
                                              batch_gap_traceback_cuda,
-                                             batch_nw_traceback_cuda)
+                                             batch_nw_traceback_cuda,
+                                             gap_rows, gap_scratch,
+                                             nw_scratch)
 
 
 def _p2(x: int, lo: int = 16) -> int:
@@ -115,6 +117,9 @@ STATS = {"problems": 0, "device_problems": 0, "device_cells": 0,
 FAMILIES = ("kband", "nw", "gap", "rb")
 TUNE_COUNTS = ("on_host", "skips", "probes", "reports", "latched")
 STATS.update({f"{fam}_{c}": 0 for fam in FAMILIES for c in TUNE_COUNTS})
+# ``<f>_too_wide`` for nw, gap and rb: the problems a family left to the
+# host DP for their size (over TRACEBACK_BOUND or MAX_WIDTH, below)
+STATS.update({f"{fam}_too_wide": 0 for fam in ("nw", "gap", "rb")})
 _MAXIMA = ("kband_ub_max",)
 # the (N, M) buckets each traceback family launched, with their
 # launches: the kernels' layouts and passes a run reached
@@ -372,11 +377,18 @@ def use_device(device) -> torch.device:
     (``"cuda"``, ``"cuda:N"`` or ``"cpu"``).  ``cuda`` raises when no
     CUDA device is available, unless the batches go to the service,
     which owns the device: this process then never touches CUDA, and
-    the service's device must be of the same type."""
+    the service's device must be of the same type.  Batches that run
+    here on the CPU (the plain versions: row-serial loops of small
+    tensor ops) take one intra-op thread: with the host's other cores
+    busy (test workers, a batch's jobs, a CPU service's clients), a
+    pool of threads waiting on one another at every small op made the
+    plain NW of 788's widest launch many times slower than one thread."""
     if is_host(device):
         raise ValueError(f"device={HOST!r} has no device batches")
     if service_socket() is None:
         device = check_card(device)
+        if device.type == "cpu":
+            torch.set_num_threads(1)
     else:
         device = torch.device(device)
         _check_served(service_device(), device)
@@ -666,20 +678,67 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
 
 
 # ---- the traceback families ------------------------------------------------
-# Per-problem size bounds.  gap keeps a (B, N, M) int8 direction scratch
-# per bucket, NW its 2-bit directions and a row buffer, at most N * M
-# bytes a problem too (traceback.nw_scratch): the area and length bounds
-# are the JAX package's (offload.py:504-506, :575-577), and with the
-# sub-batch cap below they hold a launch's scratch at 256 MB.  rb needs
-# no scratch; its text window is a DP row, at most the kernels' widest
-# (MAX_WIDTH).
-MAX_AREA = 1 << 21
-MAX_LEN_SUM = 8192
-SCRATCH_BYTES = 1 << 28
+# Which problems reach nw_kernel and gap_kernel: the kernels' own bound,
+# not a device's, so that cpu and cuda route the same problems.  The gen
+# window is a DP row, at most MAX_WIDTH wide (its power-of-four bucket
+# is then at most MAX_WIDTH too, a power of four); the kernels take the
+# est window in passes, and the same bound on it caps a problem's
+# scratch at that of the widest (MAX_WIDTH, MAX_WIDTH) bucket, which
+# every launch budget holds (``launch_budget``).  A wider problem goes
+# to the host DP and is counted in ``<family>_too_wide``; the gap
+# collect applies the bound itself (``ri_dev_set_bounds`` in dp.c).
+# rb's text window is a DP row of rowmin_kernel, at most MAX_WIDTH too.
+TRACEBACK_BOUND = (MAX_WIDTH, MAX_WIDTH)
 
 
-def _fits_traceback(e: bytes, g: bytes) -> bool:
-    return len(e) * len(g) <= MAX_AREA and len(e) + len(g) <= MAX_LEN_SUM
+def traceback_fits(e: bytes, g: bytes) -> bool:
+    return len(e) <= TRACEBACK_BOUND[0] and len(g) <= TRACEBACK_BOUND[1]
+
+
+def scratch_bytes(family: str, N: int, M: int) -> int:
+    """The kernel scratch of one problem in an (N, M) bucket: what
+    ``traceback.nw_scratch`` or ``gap_scratch`` (at ``gap_rows(N)``)
+    allocates for a batch of one; both grow linearly in the batch."""
+    if family == "nw":
+        bufs = nw_scratch(1, N, M, "meta")
+    else:
+        bufs = gap_scratch(1, N, M, "meta", gap_rows(N))
+    return sum(t.numel() * t.element_size() for t in bufs)
+
+
+# The kernel scratch one launch may take.  On a card, 1/LAUNCH_SHARE of
+# its memory, read once a device: 9.9 GiB of the 79.2 GiB
+# (85,017,493,504 bytes) of an NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit, where the widest NW problem needs 64 MiB and the widest gap
+# problem 160 MiB.  A process has two launches in flight at most (the
+# executor thread's gap batch beside this thread's NW batch; the device
+# service evaluates one batch at a time), a quarter of the card.  The
+# plain versions on the CPU materialize a byte a cell, up to four times
+# the kernels' scratch, so CPU_LAUNCH_BUDGET holds at most 2 GiB of
+# their directions.
+LAUNCH_SHARE = 8
+CPU_LAUNCH_BUDGET = 1 << 29
+_BUDGETS = {}
+
+
+def launch_budget(device) -> int:
+    """Bytes of kernel scratch one traceback launch on ``device`` may
+    take; raises when it cannot hold one problem of the widest
+    bucket."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return CPU_LAUNCH_BUDGET
+    key = (device.type, device.index)
+    if key not in _BUDGETS:
+        budget = (torch.cuda.get_device_properties(device).total_memory
+                  // LAUNCH_SHARE)
+        widest = max(scratch_bytes(fam, *TRACEBACK_BOUND)
+                     for fam in ("nw", "gap"))
+        if budget < widest:
+            raise RuntimeError(f"{device}: a launch budget of {budget} bytes "
+                               f"holds no widest problem ({widest} bytes)")
+        _BUDGETS[key] = budget
+    return _BUDGETS[key]
 
 
 def _buckets(problems, evaluated):
@@ -692,23 +751,32 @@ def _buckets(problems, evaluated):
     return sorted(groups.items())
 
 
-def _traceback_batches(problems, evaluated, device, kernel, family):
-    """Launch every (est, gen) bucket, sub-batched to the scratch cap,
-    before reading any result back.  Returns [(rows, result)] with the
-    results on the host, in launch order."""
-    pending = []
+def _launch_chunks(problems, evaluated, family, budget):
+    """[(N, M, rows)]: each (est, gen) bucket's problems in launches of
+    as many as ``budget`` bytes of the family's scratch hold."""
+    chunks = []
     for (N, M), rows in _buckets(problems, evaluated):
-        sub = max(1, SCRATCH_BYTES // (N * M))
-        for c0 in range(0, len(rows), sub):
-            chunk = rows[c0:c0 + sub]
-            s1, l1 = _encode([problems[i][0] for i in chunk], N)
-            s2, l2 = _encode([problems[i][1] for i in chunk], M)
-            with torch.profiler.record_function(f"pintron_{family}"):
-                r = kernel(*from_numpy_batch(s1, l1, s2, l2, device=device),
-                           max_n=N, max_m=M)
-            pending.append((np.asarray(chunk), r))
-            tally(batches=1)
-            _tally_bucket(family, N, M)
+        sub = max(1, budget // scratch_bytes(family, N, M))
+        chunks += [(N, M, rows[c0:c0 + sub])
+                   for c0 in range(0, len(rows), sub)]
+    return chunks
+
+
+def _traceback_batches(problems, evaluated, device, kernel, family):
+    """Launch every (est, gen) bucket, in launches within the device's
+    scratch budget, before reading any result back.  Returns [(rows,
+    result)] with the results on the host, in launch order."""
+    pending = []
+    for N, M, chunk in _launch_chunks(problems, evaluated, family,
+                                      launch_budget(device)):
+        s1, l1 = _encode([problems[i][0] for i in chunk], N)
+        s2, l2 = _encode([problems[i][1] for i in chunk], M)
+        with torch.profiler.record_function(f"pintron_{family}"):
+            r = kernel(*from_numpy_batch(s1, l1, s2, l2, device=device),
+                       max_n=N, max_m=M)
+        pending.append((np.asarray(chunk), r))
+        tally(batches=1)
+        _tally_bucket(family, N, M)
     return [(rows, tuple(t.cpu().numpy() for t in r))
             for rows, r in pending]
 
@@ -729,7 +797,7 @@ def eval_nw(problems: List[Tuple[bytes, bytes]]):
 
 def _eval_nw_device(problems: List[Tuple[bytes, bytes]],
                     device: torch.device):
-    evaluated = np.array([_fits_traceback(e, g) for e, g in problems],
+    evaluated = np.array([traceback_fits(e, g) for e, g in problems],
                          dtype=bool)
     L = max((len(e) + len(g) for e, g in problems), default=1)
     all_ops = np.zeros((len(problems), L), dtype=np.int8)
@@ -742,7 +810,7 @@ def _eval_nw_device(problems: List[Tuple[bytes, bytes]],
             on_card[i] = False
     rows = np.flatnonzero(on_card)
     tally(problems=len(problems), device_problems=len(rows),
-          nw_problems=len(rows),
+          nw_problems=len(rows), nw_too_wide=int((~evaluated).sum()),
           device_cells=sum(len(problems[i][0]) * len(problems[i][1])
                            for i in rows))
     r = service_eval("nw", problems, device)
@@ -774,7 +842,7 @@ def eval_gap(problems: List[Tuple[bytes, bytes]]):
 
 def _eval_gap_device(problems: List[Tuple[bytes, bytes]],
                      device: torch.device):
-    evaluated = np.array([_fits_traceback(e, g) for e, g in problems],
+    evaluated = np.array([traceback_fits(e, g) for e, g in problems],
                          dtype=bool)
     L = max((len(e) + len(g) for e, g in problems), default=1)
     all_sm = np.zeros(len(problems), dtype=np.int64)
@@ -782,7 +850,7 @@ def _eval_gap_device(problems: List[Tuple[bytes, bytes]],
     all_n = np.zeros(len(problems), dtype=np.int64)
     rows = np.flatnonzero(evaluated)
     tally(problems=len(problems), device_problems=len(rows),
-          gap_problems=len(rows),
+          gap_problems=len(rows), gap_too_wide=int((~evaluated).sum()),
           device_cells=sum(3 * (len(problems[i][0]) + 1)
                            * (len(problems[i][1]) + 1) for i in rows))
     r = service_eval("gap", problems, device)
@@ -823,6 +891,7 @@ def _eval_rb_device(problems: List[Tuple[bytes, bytes]],
     on_card = np.flatnonzero(evaluated)
     tally(problems=len(problems), device_problems=len(on_card),
           rb_problems=len(on_card),
+          rb_too_wide=len(problems) - len(on_card),
           device_cells=sum((len(problems[i][0]) + 1)
                            * (len(problems[i][1]) + 1) for i in on_card))
     r = service_eval("rb", problems, device)

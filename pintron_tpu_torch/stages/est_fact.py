@@ -939,7 +939,8 @@ def _collect_introns(lib, meg_arrays, cands, gen_seq_bytes: bytes,
     FILTER 4 with the warm K-band/rb memos, then walk each refine-intron
     chain against the tag-3 memo and list the first un-memoized gap
     problem per chain.  Returns (records (n, 13) int64, window arena
-    bytes), or None when unavailable."""
+    bytes, the windows left out for their size), or None when
+    unavailable."""
     import numpy as np
 
     from pintron_tpu_torch.native import np_scratch
@@ -947,7 +948,7 @@ def _collect_introns(lib, meg_arrays, cands, gen_seq_bytes: bytes,
         return None
     nv, ncols, ptrs = meg_arrays[6], meg_arrays[7], meg_arrays[8]
     c_off, c_f, c_n = cands
-    meta, meta_ptr = np_scratch("ci_meta", 2)
+    meta, meta_ptr = np_scratch("ci_meta", 3)
     cap = 128
     arena_cap = 64 * 1024
     while True:
@@ -981,7 +982,7 @@ def _collect_introns(lib, meg_arrays, cands, gen_seq_bytes: bytes,
         break
     recs = np.array(out[:13 * int(n)], dtype=np.int64).reshape(int(n), 13)
     arena_bytes = arena.view(np.uint8).tobytes()
-    return recs, arena_bytes
+    return recs, arena_bytes, int(meta[2])
 
 
 def _own_meg_arrays(flat):
@@ -1019,7 +1020,7 @@ OUTPUT_NAMES = ("raw-multifasta-out.txt", "megs.txt",
 NATIVE_ENTRIES = ("est_collect_noisy", "est_collect_endpoints",
                   "est_collect_gaps", "est_collect_introns", "epm_fill_noisy",
                   "epm_fill_endpoints", "epm_fill_rb", "ri_lookaside_set",
-                  "ri_lookaside_clear")
+                  "ri_lookaside_clear", "ri_dev_set_bounds")
 
 
 def _native_lib():
@@ -1512,7 +1513,10 @@ def _prep_introns(lib, recs_c, gen_seq_bytes: bytes, config: Config,
     executor when there is one.  Returns (per_rec, pending timed batch,
     host estimate for the tuner or None), or None when the chunk has no
     gap problem, or (under ``auto``) fewer than
-    ``offload.GAP_MIN_BATCH``, which the host DP computes."""
+    ``offload.GAP_MIN_BATCH``, which the host DP computes.  The collect
+    leaves a window over ``offload.TRACEBACK_BOUND`` to the host DP
+    (counted in ``gap_too_wide``)."""
+    lib.ri_dev_set_bounds(*offload.TRACEBACK_BOUND)
     per_rec = []
     problems = []
     for rec in recs_c:
@@ -1521,9 +1525,12 @@ def _prep_introns(lib, recs_c, gen_seq_bytes: bytes, config: Config,
         col = _collect_introns(lib, rec["meg_arrays"], rec["cands"],
                                gen_seq_bytes, rec["est_bytes"],
                                rec["est_orig_bytes"], config)
-        if col is None or not len(col[0]):
+        if col is None:
             continue
-        recs, arena = col
+        recs, arena, too_wide = col
+        offload.tally(gap_too_wide=too_wide)
+        if not len(recs):
+            continue
         base = len(problems)
         for r in recs:
             eo, nn, go, mm = (int(x) for x in r[9:13])

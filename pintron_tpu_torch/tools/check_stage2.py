@@ -23,7 +23,9 @@ family is routed to the card unless its ``PINTRON_DEVICE_<F>`` is ``0``
 or ``auto`` (``ops.offload.family_routes``).
 
 Each locus prints one line: ESTs, seconds, ESTs/s, the offload's
-counters per family and the kernel launches (``ops.kband.LAUNCHES``;
+counters per family, the device's share of the DP cells, each
+traceback family's problems left to the host for their size
+(``<family>_too_wide``) and the kernel launches (``ops.kband.LAUNCHES``;
 a ``cpu`` run launches none).  ``check_case`` does the work of one
 locus and returns it as a dict, for ``chip_smoke.py`` and the tests.
 The exit code is 1 when a case fails.
@@ -79,8 +81,10 @@ def check_case(case: str, device="cuda") -> dict:
     "status" (OK, FAIL or SKIP), "device", "ests", "seconds",
     "ests_per_s", "families" (device problems by family), "stats"
     (offload.STATS), "buckets" (offload.BUCKETS), "launches" (this
-    run's kernel launches), "host_cells" (native.dp_census), "differs"
-    (what failed)}.  A failed case keeps its golden and work
+    run's kernel launches), "host_cells" (native.dp_census),
+    "device_share" (the device's share of the DP cells), "too_wide"
+    (each traceback family's problems left to the host for their
+    size), "differs" (what failed)}.  A failed case keeps its golden and work
     directories ("gold", "work")."""
     from pintron_tpu_torch.native import dp_census, dp_census_reset
     from pintron_tpu_torch.ops import kband, offload
@@ -118,6 +122,10 @@ def check_case(case: str, device="cuda") -> dict:
                         for fam, launched in offload.BUCKETS.items()},
                launches={k: kband.LAUNCHES[k] - before[k] for k in before},
                host_cells=dp_census() or {})
+    total = stats["device_cells"] + sum(res["host_cells"].values())
+    res.update(device_share=stats["device_cells"] / total if total else 0.0,
+               too_wide={fam: stats[f"{fam}_too_wide"]
+                         for fam in ("nw", "gap", "rb")})
     bad = differing(gold, work, [n for n in STAGE2_ARTIFACTS
                                  if os.path.exists(os.path.join(gold, n))])
     # a family routed to the card (offload.family_routes: forced) must
@@ -146,7 +154,8 @@ def case_line(res: dict) -> str:
             f"{res['ests']} ESTs in {res['seconds']:.3f} s = "
             f"{res['ests_per_s']:.2f} ESTs/s; device problems kband/nw/"
             f"gap/rb {fam['kband']}/{fam['nw']}/{fam['gap']}/{fam['rb']}; "
-            f"launches {res['launches']}")
+            f"device share of DP cells {res['device_share']:.2%}; too "
+            f"wide {res['too_wide']}; launches {res['launches']}")
     if res["differs"]:
         line += (f"  differs: {', '.join(res['differs'])} (kept "
                  f"{res['work']} against {res['gold']})")

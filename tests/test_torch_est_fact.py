@@ -92,11 +92,21 @@ def test_stage2_cpu_device_byte_identical(case, golden, tmp_path,
         _jax_forced_counts(gold, tmp_path, monkeypatch)
 
 
+def _only_on_the_card(family, monkeypatch):
+    """Route every family but ``family`` to the host DP, so that no real
+    batch runs under a test's 1 s watchdog (788's NW batch takes
+    seconds in the plain version)."""
+    for fam in offload.FAMILIES:
+        if fam != family:
+            monkeypatch.setenv(offload.family_env(fam), "0")
+
+
 def test_hung_kband_batch_stops_the_stage(golden, tmp_path, device_flow,
                                           monkeypatch):
     """A hung K-band batch trips the watchdog and stops STEP 2: the
     native cascade never recomputes its checks on the host."""
     _gold, work = _workdir(golden, "test-788", tmp_path)
+    _only_on_the_card("kband", monkeypatch)
     release = threading.Event()
     monkeypatch.setattr(device_flow, "_eval_kband_device",
                         lambda *_a: release.wait(30))
@@ -156,6 +166,7 @@ def test_hung_family_batch_stops_the_stage(entry, golden, tmp_path,
     """A hung NW, gap or refine-borders batch trips the watchdog and
     stops STEP 2: the host DP never computes the rest."""
     _gold, work = _workdir(golden, "test-788", tmp_path)
+    _only_on_the_card(entry.split("_")[2], monkeypatch)
     release = threading.Event()
     monkeypatch.setattr(device_flow, entry, lambda *_a: release.wait(30))
     monkeypatch.setenv("PINTRON_DEVICE_TIMEOUT_S", "1")

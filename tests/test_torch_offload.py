@@ -359,20 +359,24 @@ def test_eval_rb_matches_jax(cpu_offload, fresh_jax_stats):
 def test_oversized_problem_is_left_to_the_host(cpu_offload, family):
     """One oversized problem among small ones: the JAX package's entry
     declines the whole batch (returns None); the port answers the small
-    ones and marks the big one unevaluated."""
+    ones and marks the big one unevaluated (its gen or text window wider
+    than the kernels' MAX_WIDTH; the JAX package's smaller bound on NW
+    and gap problems is not the port's, test_torch_traceback_bounds.py),
+    counted in ``<family>_too_wide``."""
     small = pair_problems(8, count=12)
     rng = np.random.default_rng(9)
     if family == "rb":
         small = [(g, e) for e, g in small]
         big = ("".join(rng.choice(ALPHA, 17000)).encode(), b"ACGT")
     else:
-        big = tuple("".join(rng.choice(ALPHA, 2000)).encode()
-                    for _ in range(2))
+        big = tuple("".join(rng.choice(ALPHA, n)).encode()
+                    for n in (2000, 17000))
     problems = small[:5] + [big] + small[5:]
     assert getattr(jax_off, f"eval_{family}")(problems) is None
     res = getattr(cpu_offload, f"eval_{family}")(problems)
     evaluated = res[-1]
     assert evaluated.tolist() == [i != 5 for i in range(len(problems))]
+    assert cpu_offload.STATS[f"{family}_too_wide"] == 1
     want = getattr(cpu_offload, f"eval_{family}")(small)
     keep = [i for i in range(len(problems)) if i != 5]
     for got, exp in zip(res[:-1], want[:-1]):

@@ -116,9 +116,10 @@ def pair_problems(seed, count=40):
         g = e if i % 3 == 0 else "".join(
             rng.choice(ALPHA, int(rng.integers(1, 300)))).encode()
         probs.append((e, g))
-    # one oversized problem of each kind, left to the host
+    # one oversized problem of each kind (a gen window wider than the
+    # kernels' MAX_WIDTH), left to the host
     probs.insert(7, ("".join(rng.choice(ALPHA, 2000)).encode(),
-                     "".join(rng.choice(ALPHA, 2000)).encode()))
+                     "".join(rng.choice(ALPHA, 17000)).encode()))
     return probs
 
 
@@ -135,14 +136,24 @@ def test_kband_and_edit_via_service_match_local(via):
 
 @pytest.mark.parametrize("family", ["nw", "gap", "rb"])
 def test_traceback_families_via_service_match_local(via, family):
+    """The service and this process route alike: the one problem over
+    the kernels' bound left to the host (counted in <family>_too_wide),
+    and for NW and gap one of 1500 x 1500, over the JAX package's bound,
+    evaluated."""
     problems = pair_problems({"nw": 1, "gap": 2, "rb": 3}[family])
     if family == "rb":
         problems = [(g, e) for e, g in problems]
         problems[7] = ("".join(np.random.default_rng(4).choice(
             ALPHA, 17000)).encode(), b"ACGT")
+    else:
+        rng = np.random.default_rng(5)
+        problems.append(tuple("".join(rng.choice(ALPHA, 1500)).encode()
+                              for _ in range(2)))
     remote, here, rs, hs = via(getattr(offload, f"eval_{family}"),
                                problems)
-    assert {k: rs[k] for k in COUNTS} == {k: hs[k] for k in COUNTS}
+    counts = COUNTS + (f"{family}_too_wide",)
+    assert {k: rs[k] for k in counts} == {k: hs[k] for k in counts}
+    assert hs[f"{family}_too_wide"] == 1
     evaluated = here[-1]
     assert evaluated.tolist() == [i != 7 for i in range(len(problems))]
     for got, want in zip(remote, here):

@@ -20,7 +20,7 @@ from pintron_tpu.factorize.alignments import (_compute_alignment_uncached,
                                               edit_distance_full)
 from pintron_tpu.factorize.gap_align import _compute_gap_alignment_uncached
 from pintron_tpu.native import get_lib
-from pintron_tpu_torch.ops import align, kband, traceback
+from pintron_tpu_torch.ops import align, kband, offload, traceback
 
 ACGT = np.array(list("ACGT"))
 WILD = np.array(list("ACGTNn"))
@@ -353,13 +353,15 @@ def test_nw_warp_model_matches_plain_and_jax(R, long_len):
 
 
 def test_nw_scratch_is_at_most_the_offloads_cap():
-    """nw_kernel's scratch (the 2-bit words and the row buffer) stays
-    within the N * M bytes a problem the offload's sub-batching
-    (offload.SCRATCH_BYTES) counts for every bucket it forms."""
+    """nw_kernel's scratch (the 2-bit words and the row buffer) is what
+    the offload's sub-batching counts a problem against the launch
+    budget (offload.scratch_bytes) for every bucket it forms, and stays
+    within N * M bytes, a byte a cell."""
     for N in (16, 64, 256, 1024, 4096, 16384):
         for M in (16, 64, 256, 1024, 4096, 16384):
             nbytes = sum(t.numel() * t.element_size()
                          for t in traceback.nw_scratch(1, N, M, "meta"))
+            assert nbytes == offload.scratch_bytes("nw", N, M), (N, M)
             assert nbytes <= N * M, (N, M)
 
 
@@ -546,16 +548,18 @@ def test_gap_warp_model_matches_plain_and_jax(R, long_len):
 
 def test_gap_scratch_is_at_most_the_offloads_cap():
     """gap_kernel's scratch (the two direction planes and the row
-    buffer) stays within the N * M bytes a problem the offload's
-    sub-batching (offload.SCRATCH_BYTES) counts for every bucket it
-    forms, at the rows a lane the wrapper picks; R = 2 for the (64,
-    256) bucket of STEP 2's gap launches."""
+    buffer), at the rows a lane the wrapper picks, is what the offload's
+    sub-batching counts a problem against the launch budget
+    (offload.scratch_bytes) for every bucket it forms, and stays within
+    N * M bytes; R = 2 for the (64, 256) bucket of STEP 2's gap
+    launches."""
     assert traceback.gap_rows(64) == 2 and traceback.gap_rows(256) == 16
     for N in (16, 64, 256, 1024, 4096, 16384):
         for M in (16, 64, 256, 1024, 4096, 16384):
             R = traceback.gap_rows(N)
             nbytes = sum(t.numel() * t.element_size()
                          for t in traceback.gap_scratch(1, N, M, "meta", R))
+            assert nbytes == offload.scratch_bytes("gap", N, M), (N, M)
             assert nbytes <= N * M, (N, M)
 
 
