@@ -25,6 +25,15 @@ batch, and the client raises it: there is no host fallback (the JAX
 package's clients fall back).  ``("shutdown", None)`` ends the service;
 the reply carries its counters (``eval_s``: seconds spent evaluating,
 per op) and the kernel launches.
+
+Each merged evaluation is a ``pintron_service_eval`` span (attrs: op,
+requests, problems) and each request of it a ``pintron_service_request``
+span from its arrival to its reply (attrs: op, wait, the seconds from
+its arrival to the evaluation's start, and eval, the evaluation's span
+id), kept while the span recorder records (``runtime/timing.py``).
+Started with ``PINTRON_TORCH_PROFILE=<dir>`` in its environment, the
+service records from its start and writes its spans there at shutdown
+(``spans-<pid>.jsonl``).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 
 from pintron_tpu_torch.ops import kband, offload
+from pintron_tpu_torch.runtime import timing
 
 STATS = {"requests": 0, "merged_batches": 0, "errors": 0,
          "kband_problems": 0, "edit_problems": 0, "nw_problems": 0,
@@ -108,7 +118,7 @@ def _conn_reader(conn, q) -> None:
             req = conn.recv()
         except (EOFError, OSError):
             return
-        q.put((conn, req))
+        q.put((conn, req, time.monotonic()))
 
 
 def _reply(conn, msg) -> None:
@@ -136,6 +146,9 @@ def serve(socket_path: str, device, ready_file: str = None) -> None:
     # even when started from an environment that points clients here
     os.environ.pop(offload.SERVICE_ENV, None)
     device = offload.use_device(device)
+    spans_dir = os.environ.get(timing.PROFILE_ENV)
+    if spans_dir:
+        timing.trace_on()
     try:
         os.unlink(socket_path)
     except FileNotFoundError:
@@ -161,50 +174,62 @@ def serve(socket_path: str, device, ready_file: str = None) -> None:
             f.write("ready\n")
 
     while True:
-        conn, req = q.get()
-        if req[0] == "shutdown":
-            _reply(conn, ("ok", {"stats": dict(STATS),
-                                 "offload": dict(offload.STATS),
-                                 "launches": dict(kband.LAUNCHES)}))
+        item = q.get()
+        if item[1][0] == "shutdown":
+            _reply(item[0], ("ok", {"stats": dict(STATS),
+                                    "offload": dict(offload.STATS),
+                                    "launches": dict(kband.LAUNCHES)}))
             break
         # merge the requests already waiting; waiting 1 or 4 ms for
         # more measured no faster on the H100 (PERF.md)
-        batch = [(conn, req)]
+        batch = [item]
         while True:
             try:
-                c2, r2 = q.get_nowait()
+                item = q.get_nowait()
             except queue.Empty:
                 break
-            if r2[0] == "shutdown":
-                q.put((c2, r2))   # handled after this batch
+            if item[1][0] == "shutdown":
+                q.put(item)   # handled after this batch
                 break
-            batch.append((c2, r2))
+            batch.append(item)
 
         by_op = {}
-        for c, (op, payload) in batch:
+        for c, (op, payload), arrived in batch:
             if op == "hello":
                 _reply(c, ("ok", str(device)))
                 continue
             STATS["requests"] += 1
-            by_op.setdefault(op, []).append((c, payload))
+            by_op.setdefault(op, []).append((c, payload, arrived))
         for op, items in by_op.items():
             STATS["merged_batches"] += 1
-            t0 = time.perf_counter()
+            payloads = [p for _c, p, _t in items]
+            sp = timing.timed_span(
+                "pintron_service_eval", op=op, requests=len(items),
+                problems=sum(offload.problem_count(op, p)
+                             for p in payloads))
             try:
-                results = _eval_group(op, [p for _c, p in items], device)
+                with sp:
+                    results = _eval_group(op, payloads, device)
             except Exception as e:  # noqa: BLE001 - every client is told
                 STATS["errors"] += 1
-                for c, _p in items:
-                    _reply(c, ("err", f"{type(e).__name__}: {e}"))
-                continue
+                results = [("err", f"{type(e).__name__}: {e}")] * len(items)
+            else:
+                results = [("ok", res) for res in results]
             finally:
                 STATS["eval_s"][op] = (STATS["eval_s"].get(op, 0.0)
-                                       + time.perf_counter() - t0)
-            for (c, _p), res in zip(items, results):
-                _reply(c, ("ok", res))
+                                       + sp.end - sp.start)
+            kept = timing.recording()
+            for (c, _p, arrived), msg in zip(items, results):
+                _reply(c, msg)
+                if kept:
+                    timing.record("pintron_service_request", arrived,
+                                  time.monotonic(), op=op,
+                                  wait=sp.start - arrived, eval=sp.id)
 
     stop.set()
     listener.close()
+    if spans_dir:
+        timing.write_spans(spans_dir, timing.trace_take())
 
 
 def main(argv=None) -> int:

@@ -46,9 +46,11 @@ of the wall time, the host time of STEP 2's device-flow phases (spans
 ``pintron_step2_*``), the offload counters and kernel launches per
 family, the host DP cells by family (``pintron_tpu_torch.native.dp_census``)
 and the device share of the DP cells.  Last, per locus, 3 timed runs
-(after one untimed) of ``svc1`` and of ``svc8`` with each worker timed
-in its own process: its start after the call, wall, CPU time, and the
-time it waited on service round trips.  Writes one JSON file (default
+(after one untimed) of ``svc1`` and of ``svc8`` with the span recorder
+on (``runtime/timing.py``): each worker's ``pintron_est_worker`` span and
+the ``pintron_service_call`` spans under it give its start after the
+call, wall, CPU time, and the time it waited on service round trips.
+Writes one JSON file (default
 ``chiprun_out/step2_measure.json``, with the service's report: requests,
 merged batches, evaluation seconds per op) and prints a summary.
 ``--profile-only`` runs only the profiled runs (after one untimed cuda
@@ -177,15 +179,15 @@ def _profile(run) -> dict:
             profile_all_threads=True))
     with prof:
         wall = run()
-    # device-side events: kernels and copies, and the record_function
-    # spans projected onto the GPU timeline, which cover kernels already
-    # counted and are kept apart
+    # device-side events: kernels and copies (the record_function spans
+    # projected onto the GPU timeline cover kernels already counted)
     by_name = defaultdict(lambda: [0.0, 0])
-    spans = defaultdict(lambda: [0.0, 0])
     host = defaultdict(lambda: [0.0, 0])   # the device flow's host phases
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            acc = spans if evt.name.startswith("pintron_") else by_name
+            if evt.name.startswith("pintron_"):
+                continue
+            acc = by_name
         elif evt.name.startswith("pintron_step2_"):
             acc = host
         else:
@@ -203,7 +205,6 @@ def _profile(run) -> dict:
             "by_name_ms": sorted(([k, v[0], v[1]]
                                   for k, v in by_name.items()),
                                  key=lambda x: -x[1]),
-            "spans_device_ms": dict(spans),
             "host_phases_ms": dict(host),
             "stats": dict(offload.STATS), "launches": dict(kband.LAUNCHES),
             "host_census": census,
@@ -212,53 +213,46 @@ def _profile(run) -> dict:
 
 def _trace_workers(case_dir: str, tmp: str, sock: str, workers: int,
                    reps: int = 3) -> list:
-    """``reps`` runs (after one untimed) of mode ``svc{workers}``, each
-    worker of the flow timed in its own process; returns per run the
-    wall and the workers' records."""
-    from pintron_tpu_torch.ops import offload
-    from pintron_tpu_torch.stages import est_fact
-    rec = os.path.join(tmp, "workers.jsonl")
-    call = [0.0]
-    wait = [0.0, 0]
-    run_units, service_eval = est_fact._run_units_device, offload.service_eval
-
-    def timed_eval(*a):
-        t = time.perf_counter()
-        try:
-            return service_eval(*a)
-        finally:
-            wait[0] += time.perf_counter() - t
-            wait[1] += 1
-
-    def timed_units(*a, **k):
-        # in a fork worker, or in this process for one worker
-        wait[:] = [0.0, 0]
-        start, cpu = time.time(), time.process_time()
-        try:
-            return run_units(*a, **k)
-        finally:
-            with open(rec, "a") as f:
-                f.write(json.dumps({
-                    "start_ms": (start - call[0]) * 1e3,
-                    "wall_ms": (time.time() - start) * 1e3,
-                    "cpu_ms": (time.process_time() - cpu) * 1e3,
-                    "wait_ms": wait[0] * 1e3, "requests": wait[1]}) + "\n")
-
-    est_fact._run_units_device = timed_units
-    offload.service_eval = timed_eval
+    """``reps`` runs (after one untimed) of mode ``svc{workers}`` with the
+    span recorder on; returns per run the wall and the workers'
+    records, from each ``pintron_est_worker`` span (a fork worker's, or
+    this process's for one worker) and the ``pintron_service_call``
+    spans under it."""
+    from pintron_tpu_torch.runtime import timing
     runs = []
-    try:
-        for _ in range(reps + 1):
-            open(rec, "w").close()
-            call[0] = time.time()
+    for _ in range(reps + 1):
+        timing.trace_take()
+        timing.trace_on()
+        call = time.monotonic()
+        try:
             wall = _run(case_dir, tmp, f"svc{workers}", sock)
-            with open(rec) as f:
-                runs.append({"wall_ms": wall * 1e3,
-                             "workers": [json.loads(ln) for ln in f]})
-    finally:
-        est_fact._run_units_device = run_units
-        offload.service_eval = service_eval
+        finally:
+            timing.trace_off()
+        runs.append({"wall_ms": wall * 1e3,
+                     "workers": _worker_records(timing.trace_take(), call)})
     return runs[1:]
+
+
+def _worker_records(spans, call: float) -> list:
+    """Each worker's start after ``call``, wall, CPU time, and the time it
+    waited on service round trips (its ``pintron_service_call`` spans,
+    which run on dispatch threads under the worker's span)."""
+    by_id = {s.id: s for s in spans}
+    waits = defaultdict(lambda: [0.0, 0])
+    for s in spans:
+        if s.name != "pintron_service_call":
+            continue
+        up = s
+        while up is not None and up.name != "pintron_est_worker":
+            up = by_id.get(up.parent)
+        if up is not None:
+            waits[up.id][0] += s.end - s.start
+            waits[up.id][1] += 1
+    return [{"start_ms": (w.start - call) * 1e3,
+             "wall_ms": (w.end - w.start) * 1e3,
+             "cpu_ms": w.attrs["cpu_s"] * 1e3,
+             "wait_ms": waits[w.id][0] * 1e3, "requests": waits[w.id][1]}
+            for w in spans if w.name == "pintron_est_worker"]
 
 
 def _timed(out, case, n_ests, modes, run, reps, gpu) -> None:

@@ -40,6 +40,7 @@ process never creates a CUDA context.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import threading
@@ -58,6 +59,7 @@ from pintron_tpu_torch.ops.traceback import (MAX_WIDTH,
                                              batch_nw_traceback_cuda,
                                              gap_rows, gap_scratch,
                                              nw_scratch)
+from pintron_tpu_torch.runtime import timing
 
 
 def _p2(x: int, lo: int = 16) -> int:
@@ -473,13 +475,22 @@ def _check_served(served: torch.device, device: torch.device) -> None:
                            f"{served}, not on the {device} asked for")
 
 
+def problem_count(op: str, payload) -> int:
+    """The problems of one request (a PWM request's windows); 0 for a
+    payload of no known shape."""
+    if op == "pwm":
+        payload = payload[0] if isinstance(payload, tuple) and payload else ()
+    return len(payload) if hasattr(payload, "__len__") else 0
+
+
 def service_eval(op: str, payload, device: torch.device):
     """Round-trip one batch through the service.  Returns its result,
     or None when no service is set; raises the service's error, and
     raises when the service's device is not of ``device``'s type."""
     if service_socket() is None:
         return None
-    with _SERVICE_LOCK:
+    with timing.span("pintron_service_call", op=op,
+                     problems=problem_count(op, payload)), _SERVICE_LOCK:
         conn, served = _service_conn()
         _check_served(served, device)
         conn.send((op, payload))
@@ -510,6 +521,7 @@ def device_call(fn, *args, what: str = "device batch"):
     if timeout <= 0:  # explicit opt-out: unbounded inline call
         return fn(*args)
     box: dict = {}
+    fn = timing.bind(fn)
 
     def work():
         try:
@@ -639,40 +651,45 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
 
     # Launch every group before reading any result back: launches are
     # asynchronous, so later groups' host-side encoding overlaps
-    # earlier groups' device work.
+    # earlier groups' device work.  Each route's span runs from its
+    # first launch until every result is read back, so the kernels run
+    # inside the spans.
     from pintron_tpu_torch.parallel.mesh import make_mesh
     mesh = make_mesh(mesh_size(), device)
     pending = []
-    for N, items in sorted(full_groups.items()):
-        M = _p4(max(len(b) for _, _, b, _ in items))
-        Bp = _p2(len(items), lo=64)
-        s1, l1 = _encode([a for _, a, _, _ in items], N, rows=Bp)
-        s2, l2 = _encode([b for _, _, b, _ in items], M, rows=Bp)
-        with torch.profiler.record_function("pintron_kband_full"):
+    with (timing.span("pintron_kband_full") if full_groups
+          else contextlib.nullcontext()):
+        for N, items in sorted(full_groups.items()):
+            M = _p4(max(len(b) for _, _, b, _ in items))
+            Bp = _p2(len(items), lo=64)
+            s1, l1 = _encode([a for _, a, _, _ in items], N, rows=Bp)
+            s2, l2 = _encode([b for _, _, b, _ in items], M, rows=Bp)
             r = _sharded_call(mesh, functools.partial(
-                batch_edit_distance_score_cuda, max_rows=M), [s1, l1, s2, l2])
-        pending.append((items, r))
-        tally(batches=1)
+                batch_edit_distance_score_cuda, max_rows=M),
+                [s1, l1, s2, l2])
+            pending.append((items, r))
+            tally(batches=1)
 
-    for N, items in sorted(band_groups.items()):
-        M = _p4(max(len(b) for _, _, b, _ in items))
-        K = _p2(max(ub for _, _, _, ub in items), lo=2)
-        Bp = _p2(len(items), lo=64)
-        s1, l1 = _encode([a for _, a, _, _ in items], N, rows=Bp)
-        s2, l2 = _encode([b for _, _, b, _ in items], M, rows=Bp)
-        band = np.zeros(Bp, dtype=np.int32)
-        band[:len(items)] = [ub for _, _, _, ub in items]
-        with torch.profiler.record_function("pintron_kband_band"):
-            r = _sharded_call(mesh, functools.partial(
-                banded_edit_distance_cuda, max_rows=M, k_max=K),
-                [s1, l1, s2, l2, band])
-        pending.append((items, r))
-        tally(batches=1)
+        with (timing.span("pintron_kband_band") if band_groups
+              else contextlib.nullcontext()):
+            for N, items in sorted(band_groups.items()):
+                M = _p4(max(len(b) for _, _, b, _ in items))
+                K = _p2(max(ub for _, _, _, ub in items), lo=2)
+                Bp = _p2(len(items), lo=64)
+                s1, l1 = _encode([a for _, a, _, _ in items], N, rows=Bp)
+                s2, l2 = _encode([b for _, _, b, _ in items], M, rows=Bp)
+                band = np.zeros(Bp, dtype=np.int32)
+                band[:len(items)] = [ub for _, _, _, ub in items]
+                r = _sharded_call(mesh, functools.partial(
+                    banded_edit_distance_cuda, max_rows=M, k_max=K),
+                    [s1, l1, s2, l2, band])
+                pending.append((items, r))
+                tally(batches=1)
 
-    for items, r in pending:
-        rn = r.cpu().numpy()
-        for (i, _a, _b, ub), dist in zip(items, rn):
-            ok[i] = int(dist) <= ub
+            for items, r in pending:
+                rn = r.cpu().numpy()
+                for (i, _a, _b, ub), dist in zip(items, rn):
+                    ok[i] = int(dist) <= ub
 
     return ok
 
@@ -765,20 +782,21 @@ def _launch_chunks(problems, evaluated, family, budget):
 def _traceback_batches(problems, evaluated, device, kernel, family):
     """Launch every (est, gen) bucket, in launches within the device's
     scratch budget, before reading any result back.  Returns [(rows,
-    result)] with the results on the host, in launch order."""
+    result)] with the results on the host, in launch order, all of it
+    one ``pintron_<family>`` span."""
     pending = []
-    for N, M, chunk in _launch_chunks(problems, evaluated, family,
-                                      launch_budget(device)):
-        s1, l1 = _encode([problems[i][0] for i in chunk], N)
-        s2, l2 = _encode([problems[i][1] for i in chunk], M)
-        with torch.profiler.record_function(f"pintron_{family}"):
+    with timing.span(f"pintron_{family}"):
+        for N, M, chunk in _launch_chunks(problems, evaluated, family,
+                                          launch_budget(device)):
+            s1, l1 = _encode([problems[i][0] for i in chunk], N)
+            s2, l2 = _encode([problems[i][1] for i in chunk], M)
             r = kernel(*from_numpy_batch(s1, l1, s2, l2, device=device),
                        max_n=N, max_m=M)
-        pending.append((np.asarray(chunk), r))
-        tally(batches=1)
-        _tally_bucket(family, N, M)
-    return [(rows, tuple(t.cpu().numpy() for t in r))
-            for rows, r in pending]
+            pending.append((np.asarray(chunk), r))
+            tally(batches=1)
+            _tally_bucket(family, N, M)
+        return [(rows, tuple(t.cpu().numpy() for t in r))
+                for rows, r in pending]
 
 
 def eval_nw(problems: List[Tuple[bytes, bytes]]):
@@ -899,20 +917,20 @@ def _eval_rb_device(problems: List[Tuple[bytes, bytes]],
         tally(batches=1)
         return r
     pending = []
-    for (N, M), rows in _buckets(problems, evaluated):
-        s1, l1 = _encode([problems[i][0] for i in rows], N)
-        s2, l2 = _encode([problems[i][1] for i in rows], M)
-        with torch.profiler.record_function("pintron_rowmin"):
+    with timing.span("pintron_rowmin"):
+        for (N, M), rows in _buckets(problems, evaluated):
+            s1, l1 = _encode([problems[i][0] for i in rows], N)
+            s2, l2 = _encode([problems[i][1] for i in rows], M)
             r = batch_edit_rowmin_cuda(
                 *from_numpy_batch(s1, l1, s2, l2, device=device),
                 max_rows=M)
-        pending.append((np.asarray(rows), r))
-        tally(batches=1)
-        _tally_bucket("rb", N, M)
-    for rows, (v, q) in pending:
-        w = min(stride, v.shape[1])
-        vals[rows, :w] = v[:, :w].cpu().numpy()
-        pos[rows, :w] = q[:, :w].cpu().numpy()
+            pending.append((np.asarray(rows), r))
+            tally(batches=1)
+            _tally_bucket("rb", N, M)
+        for rows, (v, q) in pending:
+            w = min(stride, v.shape[1])
+            vals[rows, :w] = v[:, :w].cpu().numpy()
+            pos[rows, :w] = q[:, :w].cpu().numpy()
     return vals, pos, evaluated
 
 
@@ -957,18 +975,18 @@ def _eval_edit_batch_device(pairs: List[Tuple[bytes, bytes]],
         groups.setdefault((_p4(len(a)), _p4(max(len(b), 1))),
                           []).append((i, a, b))
     pending = []
-    for (N, M), items in sorted(groups.items()):
-        Bp = _p2(len(items), lo=64)
-        s1, l1 = _encode([a for _, a, _ in items], N, rows=Bp)
-        s2, l2 = _encode([b for _, _, b in items], M, rows=Bp)
-        with torch.profiler.record_function("pintron_edit"):
+    with timing.span("pintron_edit"):
+        for (N, M), items in sorted(groups.items()):
+            Bp = _p2(len(items), lo=64)
+            s1, l1 = _encode([a for _, a, _ in items], N, rows=Bp)
+            s2, l2 = _encode([b for _, _, b in items], M, rows=Bp)
             r = batch_edit_distance_score_cuda(
                 *from_numpy_batch(s1, l1, s2, l2, device=device),
                 max_rows=M)
-        pending.append((items, r))
-        tally(batches=1)
-    for items, r in pending:
-        out[[i for i, _a, _b in items]] = r[:len(items)].cpu().numpy()
+            pending.append((items, r))
+            tally(batches=1)
+        for items, r in pending:
+            out[[i for i, _a, _b in items]] = r[:len(items)].cpu().numpy()
     return out
 
 
@@ -990,9 +1008,9 @@ def _pwm_scores_device(rows: np.ndarray, wpwm: np.ndarray, den: float,
     if r is not None:
         tally(batches=1)
         return r
-    with torch.profiler.record_function("pintron_pwm"):
+    with timing.span("pintron_pwm"):
         scores = pwm_scores_cuda(torch.from_numpy(rows).to(device),
                                  torch.from_numpy(wpwm).to(device),
                                  float(den))
-    tally(batches=1)
-    return scores.cpu().numpy()
+        tally(batches=1)
+        return scores.cpu().numpy()

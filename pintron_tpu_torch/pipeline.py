@@ -22,13 +22,20 @@ the device batches of STEPs 2 and 4 go to the device service instead,
 and this process never touches CUDA.
 
 ``PINTRON_TORCH_PROFILE=<dir>`` writes a ``torch.profiler`` trace of
-the whole pipeline there; the device batches carry the spans
-``pintron_kband_full``, ``pintron_kband_band``, ``pintron_nw``,
-``pintron_gap``, ``pintron_rowmin``, ``pintron_edit`` and
-``pintron_pwm``.  STEP 2 logs one line, ``est-fact device flow:
-{...}``, with the offload counters per family, the kernel launches, the
-host DP cells by family and the device share of the DP cells; STEP 4
-logs ``intron-agreement device flow: {...}``.
+the whole pipeline there (``pintron-<pid>.json``), and the spans the
+recorder kept (``runtime/timing.py``; STEP 3's child's and STEP 2's
+fork workers' included) beside it as ``spans-<pid>.jsonl``.  A locus is
+one ``pintron_locus`` span (attrs: gene, records) over ``pintron_step1``
+... ``pintron_step8``, ``pintron_gtf`` and ``pintron_cleanup``; a forked
+stage's child opens ``pintron_step<n>_child``; the device batches carry
+the spans ``pintron_kband_full``, ``pintron_kband_band``,
+``pintron_nw``, ``pintron_gap``, ``pintron_rowmin``, ``pintron_edit``
+and ``pintron_pwm``, each from its launches to its results read back
+(PERF.md lists every span and what reads it).  STEP 2 logs one
+line, ``est-fact device flow: {...}``, with the offload counters per
+family, the kernel launches, the host DP cells by family and the device
+share of the DP cells; STEP 4 logs ``intron-agreement device flow:
+{...}``.
 """
 
 from __future__ import annotations
@@ -41,12 +48,16 @@ import shutil
 import sys
 import time
 
+import torch
+
+from pintron_tpu_torch.runtime import timing
+
 
 def _start_profiler():
-    prof_dir = os.environ.get("PINTRON_TORCH_PROFILE")
+    prof_dir = os.environ.get(timing.PROFILE_ENV)
     if not prof_dir:
         return None, None
-    import torch
+    timing.trace_on()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -58,6 +69,21 @@ def _start_profiler():
             profile_all_threads=True))
     prof.start()
     return prof, prof_dir
+
+
+# STEP 10's cleanup list (pintron.py:974-983)
+TEMPFILES = (
+    "TEMP_COMPOSITION_TRANS1_1.txt", "TEMP_COMPOSITION_TRANS1_2.txt",
+    "TEMP_COMPOSITION_TRANS1_3.txt", "TEMP_COMPOSITION_TRANS1_4.txt",
+    "TRANSCRIPTS1_1.txt", "TRANSCRIPTS1_2.txt", "TRANSCRIPTS1_3.txt",
+    "TRANSCRIPTS1_4.txt", "VariantGTF.txt", "build-ests.txt",
+    "CCDS_transcripts.txt", "config-dump.ini",
+    "genomic-exonforCCDS.txt", "isoforms.txt", "meg-edges.txt",
+    "megs.txt", "out-after-intron-agree.txt", "out-agree.txt",
+    "out-fatt.txt", "predicted-introns.txt", "processed-ests.txt",
+    "processed-megs-info.txt", "processed-megs.txt",
+    "raw-multifasta-out.txt", "time-limits", "info-pid-*.log",
+)
 
 
 def pintron_pipeline(workdir: str = ".",
@@ -131,7 +157,7 @@ def pintron_pipeline(workdir: str = ".",
             raise
         plog(label, f"ok ({time.time() - t:.1f}s)")
 
-    def run_guarded(fn, minutes: int, mem_mb: int = 0,
+    def run_guarded(step: int, fn, minutes: int, mem_mb: int = 0,
                     artifacts: tuple = (), device_stage: bool = False):
         """Resource guards (reference pintron.py:878-906 `ulimit -t/-v`):
         run the stage in a forked child with RLIMIT_CPU / RLIMIT_AS plus
@@ -145,7 +171,10 @@ def pintron_pipeline(workdir: str = ".",
         that run device batches (device_stage=True) also run inline — a
         CUDA context cannot be used in a forked child — relying on the
         per-EST timeout ladder instead; all other stages keep the fork
-        watchdog and its truncated-artifact cleanup."""
+        watchdog and its truncated-artifact cleanup.  The child opens
+        ``pintron_step<step>_child``; with recording on it sends its
+        spans back over a pipe before it exits.  The parent's fork is
+        ``pintron_fork``, its wait and join ``pintron_fork_wait``."""
         if minutes <= 0 or (device_stage and not host):
             fn()
             return
@@ -173,12 +202,33 @@ def pintron_pipeline(workdir: str = ".",
                     resource.setrlimit(resource.RLIMIT_AS, (mem, mem))
             except (ValueError, OSError):
                 pass
-            fn()
+            try:
+                with timing.span(f"pintron_step{step}_child"):
+                    fn()
+            finally:
+                if pw is not None:
+                    pw.send(timing.trace_take())
 
         ctx = multiprocessing.get_context("fork")
+        pr = pw = None
+        if timing.recording():
+            pr, pw = ctx.Pipe(duplex=False)
         proc = ctx.Process(target=child)
-        proc.start()
-        proc.join(timeout=minutes * 60 + 30)
+        with timing.span("pintron_fork", processes=1):
+            proc.start()
+        limit = time.monotonic() + minutes * 60 + 30
+        with timing.span("pintron_fork_wait"):
+            if pr is not None:
+                pw.close()
+                # the spans arrive before the child can exit, or EOF if
+                # it died
+                if pr.poll(minutes * 60 + 30):
+                    try:
+                        timing.trace_add(pr.recv())
+                    except (EOFError, OSError):
+                        pass
+                pr.close()
+            proc.join(timeout=max(0.0, limit - time.monotonic()))
         timed_out = proc.is_alive()
         if timed_out:
             proc.terminate()
@@ -201,142 +251,160 @@ def pintron_pipeline(workdir: str = ".",
         return resume and all(os.path.exists(wpath(a)) for a in artifacts)
 
     t0 = time.time()
-    # Device-profiling hook: PINTRON_TORCH_PROFILE=<dir> captures a
-    # torch.profiler trace of the whole pipeline; the device batches
-    # carry record_function spans (ops/offload.py) so the kernel
-    # dispatches show up named.
+    # PINTRON_TORCH_PROFILE=<dir>: a torch.profiler trace of the whole
+    # pipeline, and the recorder's spans beside it
     prof, prof_dir = _start_profiler()
-    # STEP 1: input checks (pintron.py:824-873)
-    log.info("STEP  1:  Checking executables and input files...")
-    for f in (genome_filename, est_filename):
-        if not os.access(wpath(f), os.R_OK):
-            raise FileNotFoundError(wpath(f))
+    with timing.span("pintron_locus", gene=gene) as locus:
+        with timing.span("pintron_step1"):
+            # STEP 1: input checks (pintron.py:824-873)
+            log.info("STEP  1:  Checking executables and input files...")
+            for f in (genome_filename, est_filename):
+                if not os.access(wpath(f), os.R_OK):
+                    raise FileNotFoundError(wpath(f))
+            if timing.recording():
+                with open(wpath(est_filename), "rb") as fh:
+                    locus.attrs["records"] = sum(
+                        1 for line in fh if line.startswith(b">"))
 
-    # the stage ABI uses the well-known names; stage inputs may be aliased
-    if genome_filename != "genomic.txt":
-        shutil.copyfile(wpath(genome_filename), wpath("genomic.txt"))
-    if est_filename != "ests.txt":
-        shutil.copyfile(wpath(est_filename), wpath("ests.txt"))
+            # the stage ABI uses the well-known names; stage inputs may be
+            # aliased
+            if genome_filename != "genomic.txt":
+                shutil.copyfile(wpath(genome_filename), wpath("genomic.txt"))
+            if est_filename != "ests.txt":
+                shutil.copyfile(wpath(est_filename), wpath("ests.txt"))
 
-    # STEP 2: spliced alignment (est-fact)
-    if stage_done("raw-multifasta-out.txt", "processed-ests.txt"):
-        log.info("STEP  2:  [resume] spliced alignments found, skipping")
-    else:
-        log.info("STEP  2:  Computing the spliced alignments...")
-        run_step("cmd-2-est-fact", lambda: run_guarded(
-            lambda: est_fact.run_est_fact(workdir, config=config,
-                                          device=device),
-            max_factorization_time, max_factorization_memory,
-            artifacts=("raw-multifasta-out.txt",
-                       "processed-ests.txt", "megs.txt",
-                       "processed-megs.txt", "meg-edges.txt",
-                       "processed-megs-info.txt"),
-            device_stage=True))
+        # STEP 2: spliced alignment (est-fact)
+        with timing.span("pintron_step2"):
+            if stage_done("raw-multifasta-out.txt", "processed-ests.txt"):
+                log.info("STEP  2:  [resume] spliced alignments found, "
+                         "skipping")
+            else:
+                log.info("STEP  2:  Computing the spliced alignments...")
+                run_step("cmd-2-est-fact", lambda: run_guarded(
+                    2, lambda: est_fact.run_est_fact(workdir, config=config,
+                                                     device=device),
+                    max_factorization_time, max_factorization_memory,
+                    artifacts=("raw-multifasta-out.txt",
+                               "processed-ests.txt", "megs.txt",
+                               "processed-megs.txt", "meg-edges.txt",
+                               "processed-megs-info.txt"),
+                    device_stage=True))
 
-    # STEP 3: minimum-factorization agreement
-    if stage_done("out-agree.txt"):
-        log.info("STEP  3:  [resume] agreement found, skipping")
-    else:
-        log.info("STEP  3:  Computing the agreement of the alignments...")
+        # STEP 3: minimum-factorization agreement
+        with timing.span("pintron_step3"):
+            if stage_done("out-agree.txt"):
+                log.info("STEP  3:  [resume] agreement found, skipping")
+            else:
+                log.info("STEP  3:  Computing the agreement of the "
+                         "alignments...")
 
-        def _step3():
-            with open(wpath("raw-multifasta-out.txt")) as fin, \
-                    open(wpath("out-agree.txt"), "w") as fout:
-                run_min_factorization(fin, fout)
+                def _step3():
+                    with open(wpath("raw-multifasta-out.txt")) as fin, \
+                            open(wpath("out-agree.txt"), "w") as fout:
+                        run_min_factorization(fin, fout)
 
-        run_step("cmd-3-min-factorization", lambda: run_guarded(
-            _step3, max_exon_agreement_time,
-            artifacts=("out-agree.txt",)))
+                run_step("cmd-3-min-factorization", lambda: run_guarded(
+                    3, _step3, max_exon_agreement_time,
+                    artifacts=("out-agree.txt",)))
 
-    # STEP 4: intron agreement + classification
-    if stage_done("out-after-intron-agree.txt", "predicted-introns.txt"):
-        log.info("STEP  4:  [resume] intron agreement found, skipping")
-    else:
-        log.info("STEP  4:  Computing the intron agreement...")
-        run_step("cmd-4-intron-agreement", lambda: run_guarded(
-            lambda: intron_agreement.run_intron_agreement(workdir,
-                                                          device=device),
-            max_intron_agreement_time,
-            artifacts=("out-after-intron-agree.txt",
-                       "predicted-introns.txt"),
-            device_stage=True))
+        # STEP 4: intron agreement + classification
+        with timing.span("pintron_step4"):
+            if stage_done("out-after-intron-agree.txt",
+                          "predicted-introns.txt"):
+                log.info("STEP  4:  [resume] intron agreement found, skipping")
+            else:
+                log.info("STEP  4:  Computing the intron agreement...")
+                run_step("cmd-4-intron-agreement", lambda: run_guarded(
+                    4, lambda: intron_agreement.run_intron_agreement(
+                        workdir, device=device),
+                    max_intron_agreement_time,
+                    artifacts=("out-after-intron-agree.txt",
+                               "predicted-introns.txt"),
+                    device_stage=True))
 
-    # STEP 5: composition compaction
-    if stage_done("build-ests.txt", "genomic-exonforCCDS.txt"):
-        log.info("STEP  5:  [resume] compacted compositions found, skipping")
-    else:
-        log.info("STEP  5:  Computing the final transcript alignments...")
-        def _step5():
-            with open(wpath("out-after-intron-agree.txt")) as fin, \
-                    open(wpath("build-ests.txt"), "w") as fout:
-                run_compact_compositions(fin, fout, wpath("genomic.txt"),
-                                         wpath("genomic-exonforCCDS.txt"))
+        # STEP 5: composition compaction
+        with timing.span("pintron_step5"):
+            if stage_done("build-ests.txt", "genomic-exonforCCDS.txt"):
+                log.info("STEP  5:  [resume] compacted compositions found, "
+                         "skipping")
+            else:
+                log.info("STEP  5:  Computing the final transcript "
+                         "alignments...")
 
-        run_step("cmd-5-compact-compositions", _step5)
+                def _step5():
+                    with open(wpath("out-after-intron-agree.txt")) as fin, \
+                            open(wpath("build-ests.txt"), "w") as fout:
+                        run_compact_compositions(
+                            fin, fout, wpath("genomic.txt"),
+                            wpath("genomic-exonforCCDS.txt"))
 
-    # STEP 6: maximal transcripts
-    if stage_done("isoforms.txt"):
-        log.info("STEP  6:  [resume] isoforms found, skipping")
-    else:
-        log.info("STEP  6:  Computing the final full-length isoforms...")
-        run_step("cmd-6a-maximal-transcripts",
-                 lambda: run_maximal_transcripts(workdir))
-        shutil.copyfile(wpath("TRANSCRIPTS1_1.txt"), wpath("isoforms.txt"))
+                run_step("cmd-5-compact-compositions", _step5)
 
-    # STEP 7: CDS annotation
-    if stage_done("CCDS_transcripts.txt", "VariantGTF.txt"):
-        log.info("STEP  7:  [resume] CDS annotation found, skipping")
-    else:
-        log.info("STEP  7:  Annotating CDS...")
-        run_step("cmd-7-cds-annotation",
-                 lambda: run_cds_annotation(workdir, gene=gene,
-                                            organism=organism))
+        # STEP 6: maximal transcripts
+        with timing.span("pintron_step6"):
+            if stage_done("isoforms.txt"):
+                log.info("STEP  6:  [resume] isoforms found, skipping")
+            else:
+                log.info("STEP  6:  Computing the final full-length "
+                         "isoforms...")
 
-    # STEP 8: JSON + GTF emission
-    log.info("STEP  8:  Saving outputs...")
-    run_step("cmd-8-compute-json",
-             lambda: compute_json(workdir, wpath(output_filename),
-                                  pas_tolerance=pas_tolerance))
-    if gtf_filename:
-        json2gtf(wpath(output_filename), wpath(gtf_filename), gene,
-                 not only_cds_annot)
-    if extended_gtf_filename:
-        # --extended-gtf: an always-complete GTF variant (every isoform
-        # with full exon/UTR/codon rows) alongside the main one — under
-        # --strict-GTF-compliance the main GTF is restricted to
-        # CDS-annotated isoforms (reference pintron.py:232-273), and
-        # this file preserves the unrestricted view
-        json2gtf(wpath(output_filename), wpath(extended_gtf_filename),
-                 gene, True)
+                def _step6():
+                    run_maximal_transcripts(workdir)
+                    shutil.copyfile(wpath("TRANSCRIPTS1_1.txt"),
+                                    wpath("isoforms.txt"))
+
+                run_step("cmd-6a-maximal-transcripts", _step6)
+
+        # STEP 7: CDS annotation
+        with timing.span("pintron_step7"):
+            if stage_done("CCDS_transcripts.txt", "VariantGTF.txt"):
+                log.info("STEP  7:  [resume] CDS annotation found, skipping")
+            else:
+                log.info("STEP  7:  Annotating CDS...")
+                run_step("cmd-7-cds-annotation",
+                         lambda: run_cds_annotation(workdir, gene=gene,
+                                                    organism=organism))
+
+        # STEP 8: JSON + GTF emission
+        with timing.span("pintron_step8"):
+            log.info("STEP  8:  Saving outputs...")
+            run_step("cmd-8-compute-json",
+                     lambda: compute_json(workdir, wpath(output_filename),
+                                          pas_tolerance=pas_tolerance))
+        with timing.span("pintron_gtf"):
+            if gtf_filename:
+                json2gtf(wpath(output_filename), wpath(gtf_filename), gene,
+                         not only_cds_annot)
+            if extended_gtf_filename:
+                # --extended-gtf: an always-complete GTF variant (every
+                # isoform with full exon/UTR/codon rows) alongside the main
+                # one — under --strict-GTF-compliance the main GTF is
+                # restricted to CDS-annotated isoforms (reference
+                # pintron.py:232-273), and this file preserves the
+                # unrestricted view
+                json2gtf(wpath(output_filename),
+                         wpath(extended_gtf_filename), gene, True)
+
+        # STEP 10: cleanup (pintron.py:974-983)
+        with timing.span("pintron_cleanup"):
+            log.info("STEP 10:  Finalizing...")
+            if not keep_intermediate:
+                for name in TEMPFILES:
+                    for p in glob.glob(wpath(name)):
+                        try:
+                            os.remove(p)
+                        except OSError:
+                            pass
 
     if prof is not None:
         prof.stop()
         os.makedirs(prof_dir, exist_ok=True)
         trace = os.path.join(prof_dir, f"pintron-{os.getpid()}.json")
         prof.export_chrome_trace(trace)
-        log.info("torch profiler trace written to %s", trace)
-
-    # STEP 10: cleanup (pintron.py:974-983)
-    log.info("STEP 10:  Finalizing...")
-    if not keep_intermediate:
-        tempfiles = [
-            "TEMP_COMPOSITION_TRANS1_1.txt", "TEMP_COMPOSITION_TRANS1_2.txt",
-            "TEMP_COMPOSITION_TRANS1_3.txt", "TEMP_COMPOSITION_TRANS1_4.txt",
-            "TRANSCRIPTS1_1.txt", "TRANSCRIPTS1_2.txt", "TRANSCRIPTS1_3.txt",
-            "TRANSCRIPTS1_4.txt", "VariantGTF.txt", "build-ests.txt",
-            "CCDS_transcripts.txt", "config-dump.ini",
-            "genomic-exonforCCDS.txt", "isoforms.txt", "meg-edges.txt",
-            "megs.txt", "out-after-intron-agree.txt", "out-agree.txt",
-            "out-fatt.txt", "predicted-introns.txt", "processed-ests.txt",
-            "processed-megs-info.txt", "processed-megs.txt",
-            "raw-multifasta-out.txt", "time-limits", "info-pid-*.log",
-        ]
-        for name in tempfiles:
-            for p in glob.glob(wpath(name)):
-                try:
-                    os.remove(p)
-                except OSError:
-                    pass
+        spans = timing.write_spans(prof_dir, timing.trace_take())
+        timing.trace_off()
+        log.info("torch profiler trace written to %s, spans to %s", trace,
+                 spans)
     log.info("Pipeline completed in %.1fs", time.time() - t0)
 
 

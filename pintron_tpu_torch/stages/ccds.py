@@ -26,6 +26,8 @@ import os
 import sys
 from typing import Dict, List, Optional, Tuple
 
+from pintron_tpu_torch.runtime import timing
+
 TCDS_DEFAULT = 100  # minimum ORF length, CCDS.c:382
 
 
@@ -1313,33 +1315,39 @@ def run_cds_annotation(workdir: str, gene: str = "GENE",
     genomic-exonforCCDS.txt + genomic.txt [+ cds] ->
     CCDS_transcripts.txt + VariantGTF.txt."""
     ann = CCDSAnnotator()
-    ann.read_cds_annotations(os.path.join(workdir, "cds"))
-    ann.read_transcripts(os.path.join(workdir, "isoforms.txt"),
-                         os.path.join(workdir, "genomic.txt"))
-    ann.read_introns(os.path.join(workdir, "predicted-introns.txt"))
-    ann.read_genomic_exons(os.path.join(workdir, "genomic-exonforCCDS.txt"))
-    ann.get_exon_alignments()
-    ann.mark_intron_types()
-    for t in ann.trs:
-        t.length = sum(len(ann.exons[z].sequence) for z in t.exon_index)
-    for t in ann.trs:
-        ann.mark_transcript_type(t)
-    ann.Tcds = TCDS_DEFAULT
-    for i, t in enumerate(ann.trs):
-        if t.type == 0:
-            t.is_annotated = 1 if ann.get_cds_annotation_for_refseq(i) else 0
-    for i, t in enumerate(ann.trs):
-        if t.type != 0 or t.is_annotated == 0:
-            ann.get_longest_orf(i, ann.Tcds)
-    ref = ann.set_ref_to_longest_transcript() if ann.trs else -1
-    for i in range(len(ann.trs)):
-        ann.check_start_end_wrt_ref(ref, i)
-    if ann.trs:
-        cds_from, cds_to = ann.get_cds_for_gene(ref)
-        ann.mark_exon_endpoints(cds_from, cds_to)
-    ann.set_cover_exons()
-    if ann.trs:
-        ann.set_print_order(ref)
-    ann.write_variant_gtf(ref, os.path.join(workdir, "VariantGTF.txt"))
-    ann.write_output_file(ref, os.path.join(workdir,
-                                            "CCDS_transcripts.txt"))
+    with timing.span("pintron_step7_read"):
+        ann.read_cds_annotations(os.path.join(workdir, "cds"))
+        ann.read_transcripts(os.path.join(workdir, "isoforms.txt"),
+                             os.path.join(workdir, "genomic.txt"))
+        ann.read_introns(os.path.join(workdir, "predicted-introns.txt"))
+        ann.read_genomic_exons(os.path.join(workdir,
+                                            "genomic-exonforCCDS.txt"))
+    with timing.span("pintron_step7_align"):
+        ann.get_exon_alignments()
+        ann.mark_intron_types()
+        for t in ann.trs:
+            t.length = sum(len(ann.exons[z].sequence) for z in t.exon_index)
+        for t in ann.trs:
+            ann.mark_transcript_type(t)
+    with timing.span("pintron_step7_orf"):
+        ann.Tcds = TCDS_DEFAULT
+        for i, t in enumerate(ann.trs):
+            if t.type == 0:
+                t.is_annotated = (1 if ann.get_cds_annotation_for_refseq(i)
+                                  else 0)
+        for i, t in enumerate(ann.trs):
+            if t.type != 0 or t.is_annotated == 0:
+                ann.get_longest_orf(i, ann.Tcds)
+    with timing.span("pintron_step7_write"):
+        ref = ann.set_ref_to_longest_transcript() if ann.trs else -1
+        for i in range(len(ann.trs)):
+            ann.check_start_end_wrt_ref(ref, i)
+        if ann.trs:
+            cds_from, cds_to = ann.get_cds_for_gene(ref)
+            ann.mark_exon_endpoints(cds_from, cds_to)
+        ann.set_cover_exons()
+        if ann.trs:
+            ann.set_print_order(ref)
+        ann.write_variant_gtf(ref, os.path.join(workdir, "VariantGTF.txt"))
+        ann.write_output_file(ref, os.path.join(workdir,
+                                                "CCDS_transcripts.txt"))

@@ -18,6 +18,8 @@ import os
 import re
 from typing import Dict, List
 
+from pintron_tpu_torch.runtime import timing
+
 
 def _parse_genome_header(genomic_path: str) -> Dict[str, str]:
     with open(genomic_path, encoding="utf-8") as f:
@@ -198,14 +200,15 @@ def _parse_predicted_introns(path: str) -> Dict[int, Dict]:
 def compute_json(workdir: str, output_file: str, pas_tolerance: int = 30,
                  version: str = "") -> dict:
     """Build the full-output JSON document (file_format_version 5)."""
-    genome = _parse_genome_header(os.path.join(workdir, "genomic.txt"))
-    facts, n_processed = _parse_factorizations(
-        os.path.join(workdir, "out-after-intron-agree.txt"))
-    isoforms = _parse_variant_gtf(os.path.join(workdir, "VariantGTF.txt"))
-    ccds_meta = _parse_ccds(os.path.join(workdir, "CCDS_transcripts.txt"),
-                            isoforms)
-    introns = _parse_predicted_introns(
-        os.path.join(workdir, "predicted-introns.txt"))
+    with timing.span("pintron_step8_parse"):
+        genome = _parse_genome_header(os.path.join(workdir, "genomic.txt"))
+        facts, n_processed = _parse_factorizations(
+            os.path.join(workdir, "out-after-intron-agree.txt"))
+        isoforms = _parse_variant_gtf(os.path.join(workdir, "VariantGTF.txt"))
+        ccds_meta = _parse_ccds(os.path.join(workdir, "CCDS_transcripts.txt"),
+                                isoforms)
+        introns = _parse_predicted_introns(
+            os.path.join(workdir, "predicted-introns.txt"))
 
     gene = {
         "file_format_version": 5,
@@ -222,69 +225,73 @@ def compute_json(workdir: str, output_file: str, pas_tolerance: int = 30,
         },
     }
 
-    # exons arrive genome-reversed on '-' strand; normalize then link introns
-    for iso in isoforms.values():
-        iso["exons"].reverse()
-    for iso in isoforms.values():
-        iso["exons"].sort(key=lambda x: x["relative_end"])
-        iso["introns"] = []
-        for nxt, prv in zip(iso["exons"][1:], iso["exons"][:-1]):
-            ext = sorted([nxt["absolute_end"], nxt["absolute_start"],
-                          prv["absolute_end"], prv["absolute_start"]])
-            lb, rb = ext[1] + 1, ext[2] - 1
-            for idx, intron in introns.items():
-                if (intron["absolute_start"] == lb
-                        and intron["absolute_end"] == rb) or \
-                        (intron["absolute_end"] == lb
-                         and intron["absolute_start"] == rb):
-                    iso["introns"].append(idx)
+    with timing.span("pintron_step8_link"):
+        # exons arrive genome-reversed on '-' strand; normalize then link
+        # introns
+        for iso in isoforms.values():
+            iso["exons"].reverse()
+        for iso in isoforms.values():
+            iso["exons"].sort(key=lambda x: x["relative_end"])
+            iso["introns"] = []
+            for nxt, prv in zip(iso["exons"][1:], iso["exons"][:-1]):
+                ext = sorted([nxt["absolute_end"], nxt["absolute_start"],
+                              prv["absolute_end"], prv["absolute_start"]])
+                lb, rb = ext[1] + 1, ext[2] - 1
+                for idx, intron in introns.items():
+                    if (intron["absolute_start"] == lb
+                            and intron["absolute_end"] == rb) or \
+                            (intron["absolute_end"] == lb
+                             and intron["absolute_start"] == rb):
+                        iso["introns"].append(idx)
 
-    # per-intron supporting-EST alignment windows
-    for intron in introns.values():
-        pairs = []
-        for est in intron["supporting_transcripts"]:
-            factor = facts[est]
-            gl = [e for e in factor["exons"]
-                  if e["relative_end"] == intron["relative_start"] - 1]
-            gr = [e for e in factor["exons"]
-                  if e["relative_start"] == intron["relative_end"] + 1]
-            if len(gl) == 1 and len(gr) == 1:
-                pairs.append((est, gl[0], gr[0]))
-        if len(pairs) != intron["number_of_supporting_transcripts"]:
-            raise ValueError("intron supporting-factor mismatch")
-        for est, donor, acceptor in pairs:
-            intron["supporting_transcripts"][est] = {
-                "donor_factor_suffix":
-                    donor["EST sequence"][-len(intron["donor_exon_suffix"]):],
-                "acceptor_factor_prefix":
-                    acceptor["EST sequence"][
-                        :len(intron["acceptor_exon_prefix"])],
-                "acceptor_factor_start": acceptor["EST start"],
-                "donor_factor_end": donor["EST end"],
-                "acceptor_factor_end": acceptor["EST end"],
-                "donor_factor_start": donor["EST start"],
-            }
+    with timing.span("pintron_step8_windows"):
+        # per-intron supporting-EST alignment windows
+        for intron in introns.values():
+            pairs = []
+            for est in intron["supporting_transcripts"]:
+                factor = facts[est]
+                gl = [e for e in factor["exons"]
+                      if e["relative_end"] == intron["relative_start"] - 1]
+                gr = [e for e in factor["exons"]
+                      if e["relative_start"] == intron["relative_end"] + 1]
+                if len(gl) == 1 and len(gr) == 1:
+                    pairs.append((est, gl[0], gr[0]))
+            if len(pairs) != intron["number_of_supporting_transcripts"]:
+                raise ValueError("intron supporting-factor mismatch")
+            for est, donor, acceptor in pairs:
+                intron["supporting_transcripts"][est] = {
+                    "donor_factor_suffix": donor["EST sequence"][
+                        -len(intron["donor_exon_suffix"]):],
+                    "acceptor_factor_prefix":
+                        acceptor["EST sequence"][
+                            :len(intron["acceptor_exon_prefix"])],
+                    "acceptor_factor_start": acceptor["EST start"],
+                    "donor_factor_end": donor["EST end"],
+                    "acceptor_factor_end": acceptor["EST end"],
+                    "donor_factor_start": donor["EST start"],
+                }
 
-    # transcript sequence + PAS propagation
-    for iso in isoforms.values():
-        iso["sequence"] = "".join(e["sequence"] for e in iso["exons"])
-        if not iso["polyA?"]:
-            continue
-        last = iso["exons"][-1]
-        for fac in facts.values():
-            if fac["PAS"] and \
-                    fac["exon"]["relative_start"] == last["relative_start"] \
-                    and 30 >= fac["exon"]["relative_end"] \
-                    - last["relative_end"] >= -30:
-                iso["PAS?"] = True
-                break
+    with timing.span("pintron_step8_write"):
+        # transcript sequence + PAS propagation
+        for iso in isoforms.values():
+            iso["sequence"] = "".join(e["sequence"] for e in iso["exons"])
+            if not iso["polyA?"]:
+                continue
+            last = iso["exons"][-1]
+            for fac in facts.values():
+                if fac["PAS"] and fac["exon"]["relative_start"] \
+                        == last["relative_start"] \
+                        and 30 >= fac["exon"]["relative_end"] \
+                        - last["relative_end"] >= -30:
+                    iso["PAS?"] = True
+                    break
 
-    _annotate_cds_features(gene)
+        _annotate_cds_features(gene)
 
-    doc = json.dumps(gene, sort_keys=True, indent=4)
-    with open(output_file, "w", encoding="utf-8") as f:
-        f.write(doc)
-    return json.loads(doc)
+        doc = json.dumps(gene, sort_keys=True, indent=4)
+        with open(output_file, "w", encoding="utf-8") as f:
+            f.write(doc)
+        return json.loads(doc)
 
 
 def _annotate_cds_features(gene: dict) -> None:

@@ -81,6 +81,7 @@ from pintron_tpu_torch.meg import simplify as simp
 from pintron_tpu_torch.meg.graph import MEG
 from pintron_tpu_torch.native import dp_census, dp_census_reset, get_lib
 from pintron_tpu_torch.ops import kband, offload
+from pintron_tpu_torch.runtime import timing
 
 
 class FactorizedEst:
@@ -1003,10 +1004,6 @@ def _own_meg_arrays(flat):
 
 # ---- the device flow -----------------------------------------------------
 
-# host spans of the device flow's phases, read by measure_step2 from a
-# torch.profiler trace (no cost when no profiler runs)
-_span = torch.profiler.record_function
-
 # smallest locus (records in ests.txt) that the service mode shards over
 # fork workers: the JAX package's value, not one measured for the port
 FORK_MIN_RECORDS = 128
@@ -1088,7 +1085,7 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
         prob_index = {}      # (seq_id, coords) -> index into problems
         next_attempts = []
 
-        with _span("pintron_step2_meg_enum"):
+        with timing.span("pintron_step2_meg_enum"):
             for att in attempts:
                 est = units[att["unit"]][att["est_idx"]]
                 t_meg0 = time.monotonic()
@@ -1148,7 +1145,7 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
         # the family on the host no problem is collected, and the cascade
         # (the rb collect's replay first) computes the checks itself.
         kband_on = offload.on_card("kband", routes["kband"])
-        with _span("pintron_step2_collect_noisy"):
+        with timing.span("pintron_step2_collect_noisy"):
             for rec in round_recs:
                 if kband_on and rec["cands"] is not None:
                     col = _collect_noisy(
@@ -1189,7 +1186,7 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                     rec["est_orig_bytes"], len(rec["est_orig_bytes"]),
                     coords.ctypes.data, okvec.ctypes.data, len(idxs))
 
-        @_span("pintron_step2_cascade")
+        @timing.span("pintron_step2_cascade")
         def run_cascade(rec):
             att = rec["att"]
             est = rec["est"]
@@ -1290,8 +1287,8 @@ def _run_units_device(gen: mf.EstInfo, tree: SuffixTree,
                         ("done", eval_kband(problems[lo:hi]), lo, hi))
                 else:
                     launches.append(
-                        ("fut", pool.submit(eval_kband, problems[lo:hi]),
-                         lo, hi))
+                        ("fut", pool.submit(timing.bind(eval_kband),
+                                            problems[lo:hi]), lo, hi))
             # Software pipeline: chunk i's gap batch is in flight on the
             # executor thread while chunk i-1's cascades run here (and
             # while chunk i+1's collect and rb work proceeds).
@@ -1352,28 +1349,42 @@ def _run_units_device_forked(gen: mf.EstInfo, tree: SuffixTree,
         offload.reset_stats()
         dp_census_reset()
         try:
-            res = _run_units_device(gen, tree, gen_seq_bytes, config,
-                                    ests_path, fresh=fresh,
-                                    shard=(w, nworkers))
+            res = _run_units_worker(gen, tree, gen_seq_bytes, config,
+                                    ests_path, fresh, w, nworkers)
             pw.send(("ok", res, dict(offload.STATS), dp_census() or {},
-                     offload.latches()))
+                     offload.latches(), timing.trace_take()))
         except BaseException as e:  # noqa: BLE001 - reported to the parent
-            pw.send(("err", f"{type(e).__name__}: {e}", None, None, None))
+            pw.send(("err", f"{type(e).__name__}: {e}", None, None, None,
+                     timing.trace_take()))
         finally:
             pw.close()
 
     workers = []
-    for w in range(nworkers):
-        pr, pw = ctx.Pipe(duplex=False)
-        proc = ctx.Process(target=child_main, args=(w, pw))
-        proc.start()
-        pw.close()
-        workers.append((pr, proc))
+    with timing.span("pintron_fork", processes=nworkers):
+        for w in range(nworkers):
+            pr, pw = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=child_main, args=(w, pw))
+            proc.start()
+            pw.close()
+            workers.append((pr, proc))
 
+    with timing.span("pintron_fork_wait"):
+        merged, census, errors = _merge_workers(workers)
+    if errors:
+        raise RuntimeError("sharded STEP 2 device flow failed: "
+                           + "; ".join(errors))
+    offload.tally(device_runs=1)
+    return [merged[i] for i in sorted(merged)], census
+
+
+def _merge_workers(workers):
+    """Each worker's reply, in worker order, merged: (blobs by unit,
+    host DP cells by family, the failed workers)."""
     merged, census, errors = {}, {}, []
     for w, (pr, proc) in enumerate(workers):
         try:
-            status, payload, stats, cells, latched = pr.recv()
+            status, payload, stats, cells, latched, spans = pr.recv()
+            timing.trace_add(spans)
         except (EOFError, OSError) as e:
             status, payload = "err", f"no reply ({type(e).__name__})"
         pr.close()
@@ -1387,11 +1398,22 @@ def _run_units_device_forked(gen: mf.EstInfo, tree: SuffixTree,
                          if k != "device_runs"})
         for k, v in cells.items():
             census[k] = census.get(k, 0) + v
-    if errors:
-        raise RuntimeError("sharded STEP 2 device flow failed: "
-                           + "; ".join(errors))
-    offload.tally(device_runs=1)
-    return [merged[i] for i in sorted(merged)], census
+    return merged, census, errors
+
+
+def _run_units_worker(gen, tree, gen_seq_bytes, config, ests_path, fresh,
+                      w: int, nworkers: int):
+    """``_run_units_device`` over worker ``w``'s shard of ``nworkers``,
+    as one ``pintron_est_worker`` span (attrs: worker, nworkers, and
+    cpu_s, this process's CPU seconds in it)."""
+    cpu0 = time.process_time()
+    with timing.span("pintron_est_worker", worker=w, nworkers=nworkers):
+        try:
+            return _run_units_device(gen, tree, gen_seq_bytes, config,
+                                     ests_path, fresh=fresh,
+                                     shard=(w, nworkers))
+        finally:
+            timing.note(cpu_s=time.process_time() - cpu0)
 
 
 def _timed(fn, *args):
@@ -1401,7 +1423,7 @@ def _timed(fn, *args):
     return res, time.monotonic() - t0
 
 
-@_span("pintron_step2_nw_phase")
+@timing.span("pintron_step2_nw_phase")
 def _offload_endpoints(lib, round_recs, gen_seq_bytes: bytes,
                        route: str) -> None:
     """Endpoint-NW phase of a round: collect the head/tail alignment
@@ -1448,7 +1470,7 @@ def _offload_endpoints(lib, round_recs, gen_seq_bytes: bytes,
             n_c.ctypes.data, stride)
 
 
-@_span("pintron_step2_rb_phase")
+@timing.span("pintron_step2_rb_phase")
 def _offload_rb(lib, recs_c, gen_seq_bytes: bytes, config: Config,
                 route: str) -> None:
     """Refine-borders phase of a chunk: collect FILTER 4's gap problems
@@ -1504,7 +1526,7 @@ def _offload_rb(lib, recs_c, gen_seq_bytes: bytes, config: Config,
             *(t.ctypes.data for t in tables), stride)
 
 
-@_span("pintron_step2_gap_collect")
+@timing.span("pintron_step2_gap_collect")
 def _prep_introns(lib, recs_c, gen_seq_bytes: bytes, config: Config,
                   pool, route: str):
     """Gap-alignment phase of a chunk, part 1: collect every speculative
@@ -1546,11 +1568,11 @@ def _prep_introns(lib, recs_c, gen_seq_bytes: bytes, config: Config,
         est = offload.host_estimate("gap", problems)
     if pool is None:
         return per_rec, ("done", _timed(offload.eval_gap, problems)), est
-    return (per_rec, ("fut", pool.submit(_timed, offload.eval_gap, problems)),
-            est)
+    return (per_rec, ("fut", pool.submit(timing.bind(_timed),
+                                         offload.eval_gap, problems)), est)
 
 
-@_span("pintron_step2_gap_wait")
+@timing.span("pintron_step2_gap_wait")
 def _resolve_introns(prep) -> None:
     """Part 2: wait for the chunk's gap batch (its time goes to the
     tuner under ``auto``) and attach to each record its evaluated
@@ -1990,16 +2012,15 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
         config.validate()
     config.dump_ini(wpath("config-dump.ini"))
 
-    timers["io"].start()
-    with open(wpath("genomic.txt")) as fh:
-        gen_list = mf.read_multifasta(fh)
-    if len(gen_list) != 1:
-        raise ValueError(f"genomic.txt holds {len(gen_list)} records, "
-                         "expected 1")
-    gen = gen_list[0]
-    mf.parse_genomic_header(gen)
-    mf.ntails_removal(gen)
-    timers["io"].stop()
+    with timers["io"], timing.span("pintron_est_io"):
+        with open(wpath("genomic.txt")) as fh:
+            gen_list = mf.read_multifasta(fh)
+        if len(gen_list) != 1:
+            raise ValueError(f"genomic.txt holds {len(gen_list)} records, "
+                             "expected 1")
+        gen = gen_list[0]
+        mf.parse_genomic_header(gen)
+        mf.ntails_removal(gen)
     checkpoint("ests-read-and-preprocessed")
     gen_seq_bytes = gen.seq.encode("latin1")
 
@@ -2020,10 +2041,9 @@ def run_est_fact(workdir: str = ".", config: Optional[Config] = None,
     timers["algorithm"].stop()
     checkpoint("alignment-end")
 
-    timers["io"].start()
-    for k, name in enumerate(OUTPUT_NAMES):
-        write_text(wpath(name), "".join(r[k] for r in results))
-    timers["io"].stop()
+    with timers["io"], timing.span("pintron_est_io"):
+        for k, name in enumerate(OUTPUT_NAMES):
+            write_text(wpath(name), "".join(r[k] for r in results))
     checkpoint("output-written")
     timers.log_all()
     resource_usage_log(level=logging.DEBUG)
@@ -2066,7 +2086,8 @@ def _run_device(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
     cells0 = offload.STATS["device_cells"]
     with open(ests_path) as fh:
         n_records = sum(1 for line in fh if line.startswith(">"))
-    tree = SuffixTree(gen_seq_bytes)
+    with timing.span("pintron_est_index"):
+        tree = SuffixTree(gen_seq_bytes)
     sharded = (offload.service_socket() is not None and nworkers > 1
                and n_records >= FORK_MIN_RECORDS)
     if sharded:
@@ -2076,8 +2097,8 @@ def _run_device(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
         results, host_cells = _run_units_device_forked(
             gen, tree, gen_seq_bytes, config, ests_path, fresh, nworkers)
     else:
-        results = [blobs for _i, blobs in _run_units_device(
-            gen, tree, gen_seq_bytes, config, ests_path, fresh=fresh)]
+        results = [blobs for _i, blobs in _run_units_worker(
+            gen, tree, gen_seq_bytes, config, ests_path, fresh, 0, 1)]
         host_cells = dp_census() or {}
     dev_cells = offload.STATS["device_cells"] - cells0
     total = dev_cells + sum(host_cells.values())

@@ -33,6 +33,8 @@ import re
 import sys
 from typing import List, Optional
 
+from pintron_tpu_torch.runtime import timing
+
 MAX_DIFF_FOR_REDUCING = 20   # MaximalTranscripts.c:65
 MIN_POLYA_DIFF = 24          # :80
 FIRST_MIN_EXONS = 1          # FIRST_MIN_EXONS_ACCEPTED_OUTPUT, :98
@@ -1426,16 +1428,20 @@ def run_maximal_transcripts(workdir: str,
                             ) -> None:
     """Full stage: build-ests.txt -> TRANSCRIPTS1_{1..4}.txt +
     TEMP_COMPOSITION_TRANS1_{1..4}.txt in `workdir`."""
-    with open(os.path.join(workdir, build_ests)) as f:
-        tokens = f.read().split()
-    mt = MaximalTranscripts()
-    mt.read_input(tokens)
-    mt.first_filtering()
-    mt.build_extension_matrix()
-    mt.graph_reduction()
-    n = len(mt.transcripts)
-    mt.source_list = [i for i in range(n) if mt.in_degree[i] == 0]
-    mt.set_paths()
-    mt.filter_path_transcripts()
-    mt.filter_by_introns(os.path.join(workdir, predicted_introns))
-    mt.write_outputs(workdir)
+    with timing.span("pintron_step6_read"):
+        with open(os.path.join(workdir, build_ests)) as f:
+            tokens = f.read().split()
+        mt = MaximalTranscripts()
+        mt.read_input(tokens)
+        mt.first_filtering()
+    with timing.span("pintron_step6_graph"):
+        mt.build_extension_matrix()
+        mt.graph_reduction()
+    with timing.span("pintron_step6_paths"):
+        n = len(mt.transcripts)
+        mt.source_list = [i for i in range(n) if mt.in_degree[i] == 0]
+        mt.set_paths()
+        mt.filter_path_transcripts()
+    with timing.span("pintron_step6_write"):
+        mt.filter_by_introns(os.path.join(workdir, predicted_introns))
+        mt.write_outputs(workdir)
