@@ -17,9 +17,11 @@ same intermediate-file ABI, same cleanup list as
     stage in its forked child, as the JAX package runs by default.
 
 STEP 3 and STEPs 5-8 are host stages and run the same way in every
-mode.  With ``PINTRON_TORCH_SERVICE`` set (the batch driver sets it),
-the device batches of STEPs 2 and 4 go to the device service instead,
-and this process never touches CUDA.
+mode; STEP 3's guarded child comes from the guard server
+(``guard.py``), started at a process's first pipeline call.  With
+``PINTRON_TORCH_SERVICE`` set (``batch.py`` sets it), the device
+batches of STEPs 2 and 4 go to the device service instead, and this
+process never touches CUDA.
 
 ``PINTRON_TORCH_PROFILE=<dir>`` writes a ``torch.profiler`` trace of
 the whole pipeline there (``pintron-<pid>.json``), and the spans the
@@ -50,6 +52,7 @@ import time
 
 import torch
 
+from pintron_tpu_torch import guard
 from pintron_tpu_torch.runtime import timing
 
 
@@ -118,7 +121,7 @@ def pintron_pipeline(workdir: str = ".",
     from pintron_tpu_torch.ops import offload
     from pintron_tpu_torch.stages import est_fact, intron_agreement
     from pintron_tpu_torch.stages.min_factorization import \
-        run_min_factorization
+        run_min_factorization_files
     from pintron_tpu_torch.stages.compact import run_compact_compositions
     from pintron_tpu_torch.stages.transcripts import run_maximal_transcripts
     from pintron_tpu_torch.stages.ccds import run_cds_annotation
@@ -158,91 +161,39 @@ def pintron_pipeline(workdir: str = ".",
         plog(label, f"ok ({time.time() - t:.1f}s)")
 
     def run_guarded(step: int, fn, minutes: int, mem_mb: int = 0,
-                    artifacts: tuple = (), device_stage: bool = False):
+                    artifacts: tuple = (), device_stage: bool = False,
+                    served=None):
         """Resource guards (reference pintron.py:878-906 `ulimit -t/-v`):
-        run the stage in a forked child with RLIMIT_CPU / RLIMIT_AS plus
-        a parent-side wall-clock watchdog (the child forks pool workers
-        whose CPU its own rlimit cannot see), so a runaway stage aborts
-        the pipeline instead of hanging it.  On failure the stage's
-        declared output artifacts are removed so a later --resume cannot
-        pick up a truncated checkpoint.  The stages communicate through
-        files, so process isolation changes nothing on success.  Guards
-        <= 0 run the stage inline.  With a torch device the stages
-        that run device batches (device_stage=True) also run inline — a
-        CUDA context cannot be used in a forked child — relying on the
-        per-EST timeout ladder instead; all other stages keep the fork
-        watchdog and its truncated-artifact cleanup.  The child opens
-        ``pintron_step<step>_child``; with recording on it sends its
-        spans back over a pipe before it exits.  The parent's fork is
-        ``pintron_fork``, its wait and join ``pintron_fork_wait``."""
+        run the stage in a child process with RLIMIT_CPU of ``minutes``
+        and RLIMIT_AS growth of ``mem_mb``, and a wall-clock watchdog of
+        ``minutes`` plus 30 s in this process (a child that forks pool
+        workers cannot see their CPU in its own rlimit), so that a
+        runaway stage aborts the pipeline instead of hanging it.  On
+        failure the stage's declared output artifacts are removed so a
+        later --resume cannot pick up a truncated checkpoint.  The
+        stages communicate through files, so process isolation changes
+        nothing on success.  Guards <= 0 run the stage inline.
+
+        Where the child comes from (``guard.py``): STEP 3 names its call
+        (``served``), and the guard server forks it, a small process
+        started by exec at this process's first pipeline call that
+        never imports torch, so a locus no longer pays a fork of this
+        process, which maps torch and the CUDA context.  ``--device
+        host``'s STEPs 2 and 4 keep a fork of this process: their
+        modules import torch at the top, and a torch import in each
+        child would cost more than the fork it saves.  With a torch
+        device those two stages (device_stage=True) run inline, as a
+        CUDA context cannot be used in a forked child, relying on the
+        per-EST timeout ladder instead.  Spans: ``pintron_fork``
+        (processes, via) over the request or the fork,
+        ``pintron_fork_wait`` over the wait and join, and the child's
+        ``pintron_step<step>_child`` under the first."""
         if minutes <= 0 or (device_stage and not host):
             fn()
             return
-        import multiprocessing
-        import resource as _resource
-
-        def child():
-            import resource
-            cpu = minutes * 60
-            try:
-                resource.setrlimit(resource.RLIMIT_CPU, (cpu, cpu + 10))
-                if mem_mb > 0:
-                    # cap GROWTH by mem_mb on top of the mappings already
-                    # inherited from the parent (a parent with torch loaded
-                    # maps gigabytes of virtual space the reference's fresh
-                    # C process never had)
-                    cur = 0
-                    page = _resource.getpagesize()
-                    try:
-                        with open("/proc/self/statm") as f:
-                            cur = int(f.read().split()[0]) * page
-                    except (OSError, ValueError, IndexError):
-                        pass
-                    mem = cur + mem_mb * 1024 * 1024
-                    resource.setrlimit(resource.RLIMIT_AS, (mem, mem))
-            except (ValueError, OSError):
-                pass
-            try:
-                with timing.span(f"pintron_step{step}_child"):
-                    fn()
-            finally:
-                if pw is not None:
-                    pw.send(timing.trace_take())
-
-        ctx = multiprocessing.get_context("fork")
-        pr = pw = None
-        if timing.recording():
-            pr, pw = ctx.Pipe(duplex=False)
-        proc = ctx.Process(target=child)
-        with timing.span("pintron_fork", processes=1):
-            proc.start()
-        limit = time.monotonic() + minutes * 60 + 30
-        with timing.span("pintron_fork_wait"):
-            if pr is not None:
-                pw.close()
-                # the spans arrive before the child can exit, or EOF if
-                # it died
-                if pr.poll(minutes * 60 + 30):
-                    try:
-                        timing.trace_add(pr.recv())
-                    except (EOFError, OSError):
-                        pass
-                pr.close()
-            proc.join(timeout=max(0.0, limit - time.monotonic()))
-        timed_out = proc.is_alive()
-        if timed_out:
-            proc.terminate()
-            proc.join(timeout=10)
-        if timed_out or proc.exitcode != 0:
-            for name in artifacts:
-                try:
-                    os.remove(wpath(name))
-                except OSError:
-                    pass
-            raise RuntimeError(
-                "stage exceeded its resource guard or failed "
-                + ("(wall-clock timeout)" if timed_out
-                   else f"(exit {proc.exitcode})"))
+        guard.run_guarded(step, fn, minutes * 60, minutes * 60 + 30,
+                          mem_mb, tuple(wpath(a) for a in artifacts),
+                          served)
 
     def stage_done(*artifacts: str) -> bool:
         """Idempotent restart: the inter-stage files double as
@@ -251,6 +202,8 @@ def pintron_pipeline(workdir: str = ".",
         return resume and all(os.path.exists(wpath(a)) for a in artifacts)
 
     t0 = time.time()
+    # STEP 3's guard server starts now, its start overlapping STEPs 1-2
+    guard.start()
     # PINTRON_TORCH_PROFILE=<dir>: a torch.profiler trace of the whole
     # pipeline, and the recorder's spans beside it
     prof, prof_dir = _start_profiler()
@@ -298,14 +251,13 @@ def pintron_pipeline(workdir: str = ".",
                 log.info("STEP  3:  Computing the agreement of the "
                          "alignments...")
 
-                def _step3():
-                    with open(wpath("raw-multifasta-out.txt")) as fin, \
-                            open(wpath("out-agree.txt"), "w") as fout:
-                        run_min_factorization(fin, fout)
-
+                step3 = (os.path.abspath(wpath("raw-multifasta-out.txt")),
+                         os.path.abspath(wpath("out-agree.txt")))
                 run_step("cmd-3-min-factorization", lambda: run_guarded(
-                    3, _step3, max_exon_agreement_time,
-                    artifacts=("out-agree.txt",)))
+                    3, lambda: run_min_factorization_files(*step3),
+                    max_exon_agreement_time, artifacts=("out-agree.txt",),
+                    served=("pintron_tpu_torch.stages.min_factorization",
+                            "run_min_factorization_files", step3)))
 
         # STEP 4: intron agreement + classification
         with timing.span("pintron_step4"):

@@ -357,3 +357,10 @@ def run_min_factorization(in_fh: TextIO, out_fh: TextIO) -> None:
             for f in fact:
                 out_fh.write(f"{f.est_start}\t {f.est_end}\t "
                              f"{f.gen_start}\t {f.gen_end}\n")
+
+
+def run_min_factorization_files(in_path: str, out_path: str) -> None:
+    """STEP 3 over its files: ``raw-multifasta-out.txt`` in,
+    ``out-agree.txt`` out (the call the guard server makes by name)."""
+    with open(in_path) as fin, open(out_path, "w") as fout:
+        run_min_factorization(fin, fout)
