@@ -1,10 +1,14 @@
-"""A lone locus as ``pintron_tpu_torch.batch`` runs it: one device
-service owns the card (started by the benchmark's launcher,
-``benchmark/harness/service.py``), and ``pintron_pipeline`` runs in
-this process as the service's client, with STEP 2 sharded over the
-traffic's ``est_workers`` fork workers that send their batches to the
-service (a locus of at least 128 records; smaller ones run in this
-process).  This process never touches CUDA."""
+"""Loci as ``pintron_tpu_torch.batch`` runs them: one device service
+owns the card (started by the benchmark's launcher,
+``benchmark/harness/service.py``), and ``pintron_pipeline`` runs as the
+service's client, with STEP 2 sharded over the traffic's
+``est_workers`` fork workers that send their batches to the service (a
+locus of at least 128 records; smaller ones run in one process).  With
+the traffic's ``clients`` = 1 a lone locus runs in this process at a
+time; with more (``CONCURRENT``), each locus in a spawned job of its
+own (``harness/jobs.py``), every job a client of the one service, and
+``est_workers`` stands for ``batch.py``'s cores // loci at once.  This
+process never touches CUDA."""
 
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import time
 LAUNCHER = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "harness", "service.py")
 READY_S = 300.0
+CONCURRENT = True
 
 
 class Deployment:

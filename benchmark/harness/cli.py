@@ -22,10 +22,14 @@ def card_count() -> int:
 
 
 def context(win: dict, setup_s: float) -> dict:
-    """What the metric readers read (``benchmark/metrics/*.py``)."""
+    """What the metric readers read (``benchmark/metrics/*.py``):
+    ``spans`` holds the program's own spans (``runtime/timing.py``'s
+    ``Span``, on the monotonic clock of ``runs`` and ``window``) by
+    process, ``harness``, ``service`` and ``job-<pid>`` of each job, in
+    traced windows; in untraced ones it is empty."""
     return {"runs": win["runs"], "window": win["window"],
             "timeline": win["timeline"], "evals": win["report"]["evals"],
-            "setup_s": setup_s}
+            "spans": win["spans"], "setup_s": setup_s}
 
 
 def measure(run: "runner.Run", seed: int, seconds: float, traced: bool,
@@ -69,6 +73,9 @@ def measure(run: "runner.Run", seed: int, seconds: float, traced: bool,
                    "cpu_s": win["cpu_s"],
                    "errors": [r["error"] for r in win["runs"]
                               if r["error"]][:3]}
+    if run.clients > 1:
+        out["info"]["jobs"] = _jobs_summary(win["runs"], run.clients,
+                                            w0, w1)
     out["checks"] = {k: {"value": v, "limit": lim}
                      for k, (v, lim) in verdict["checks"].items()}
     return out, rep["forbidden"]
@@ -85,6 +92,30 @@ def _steps(runs: list) -> dict:
             out["other"] = out.get("other", 0.0) + r["wall"] - sum(
                 e - s for _st, s, e in r["steps"])
     return out
+
+
+def _jobs_summary(runs: list, clients: int, lo: float, hi: float) -> dict:
+    """Where the jobs' time went besides their loci: ``spawn_s``, from
+    each job's dispatch to its target's entry (the interpreter's start,
+    the call unpickled); ``import_s``, from there to its locus's start
+    (the harness's and the port's imports: torch); ``exit_s``, from its
+    locus's end to its process's end as this process saw it;
+    ``drain_s``, the window's seconds in which fewer than ``clients``
+    jobs ran."""
+    edges = sorted([(r["dispatched"], 1) for r in runs]
+                   + [(r["ended"], -1) for r in runs])
+    drain, n, t = 0.0, 0, lo
+    for x, step in edges:
+        if n < clients:
+            drain += min(max(x, lo), hi) - t
+        n += step
+        t = min(max(x, lo), hi)
+    drain += hi - t
+    entered = [r.get("entered", r["start"]) for r in runs]
+    return {"spawn_s": [e - r["dispatched"] for e, r in zip(entered, runs)],
+            "import_s": [r["start"] - e for e, r in zip(entered, runs)],
+            "exit_s": [r["ended"] - r["end"] for r in runs],
+            "drain_s": drain}
 
 
 def _loci_summary(runs: list) -> dict:
@@ -120,10 +151,11 @@ def main(argv, t_start: float, age: float, device: str = "cuda",
     finally:
         run.close()
     bad = runner.forbidden_modules(sys.modules)
-    if bad or served:
+    jobs = sorted(run.job_forbidden)
+    if bad or served or jobs:
         print(f"benchmark: modules loaded that the port must not load: "
-              f"{bad} in this process, {served} in the device service",
-              file=sys.stderr)
+              f"{bad} in this process, {served} in the device service, "
+              f"{jobs} in the loci's jobs", file=sys.stderr)
         return EXIT_FORBIDDEN
     info = out["info"]["loci"]
     print(f"loci {info['count']}, beyond the 90th percentile "

@@ -10,6 +10,9 @@ never planted by a run of ``benchmark/run.py``.
   * ``worker``: one fork worker's results lost in the merge: STEP 2's
     sharded flow drops what its last worker returns (the worker runs
     its units and sends its counters, as a sound one does);
+  * ``die``: a job killed in the middle of its locus: the spawned
+    process of a locus (traffic with ``clients`` > 1) kills itself with
+    SIGKILL as STEP 4 starts, after STEPs 1-3;
   * ``control``: the benchmark's reference, one step of precision
     below the program's, in the program's place: STEP 4's PWM scores in
     bfloat16 (``reference/pwm.scores_bf16``).
@@ -17,15 +20,20 @@ never planted by a run of ``benchmark/run.py``.
 ``answer`` and ``half`` are planted in the program's ``_eval_*_device``
 functions, in the process that runs them (the device service's, when
 there is one); ``worker`` in the process that forks STEP 2's workers,
-the pipeline's.
+the pipeline's (each job's, with ``clients`` > 1); ``die`` in each job
+of the window.
 """
 
 from __future__ import annotations
+
+import os
+import signal
 
 import numpy as np
 
 DEVICE_FAULTS = ("answer", "half")
 CLIENT_FAULTS = ("worker",)
+JOB_FAULTS = ("die",)
 
 
 def _wrap(offload, name, alter):
@@ -100,8 +108,20 @@ def plant_client(fault: str):
     return undo
 
 
-def control(offload) -> None:
-    """STEP 4's PWM scores from the reference in bfloat16."""
+def plant_job(fault: str) -> None:
+    """One of ``JOB_FAULTS`` in this process, a job's."""
+    if fault not in JOB_FAULTS:
+        raise ValueError(f"unknown job fault {fault!r}")
+    from pintron_tpu_torch.stages import intron_agreement
+
+    def die(*args, **kw):
+        os.kill(os.getpid(), signal.SIGKILL)
+    intron_agreement.run_intron_agreement = die
+
+
+def control(offload):
+    """STEP 4's PWM scores from the reference in bfloat16; returns the
+    function that puts the program's back."""
     from benchmark.reference import pwm
 
     def pwm_bf16(rows, wpwm, den):
@@ -109,4 +129,6 @@ def control(offload) -> None:
         if name is None:
             raise ValueError("control: a PWM batch of no known matrix")
         return pwm.scores_bf16(np.asarray(rows), name)
+    orig = offload.pwm_scores_batched
     offload.pwm_scores_batched = pwm_bf16
+    return lambda: setattr(offload, "pwm_scores_batched", orig)

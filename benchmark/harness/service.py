@@ -8,8 +8,11 @@ it, with one op of the benchmark's own beside the port's six:
 ``("bench_ctl", {"what": ...})``, answered from this process, which
 owns the card:
 
-  * ``trace_start`` / ``trace_stop``: the profiler over the window;
-    ``trace_stop`` answers with the timeline (``trace.stop``);
+  * ``trace_start`` / ``trace_stop``: the profiler and the program's
+    span recorder (``runtime/timing.py``) over the window;
+    ``trace_stop`` answers with the timeline (``trace.stop``) and, under
+    ``spans``, the spans this process kept (those of the service's own
+    ``bench_ctl`` requests left out);
   * ``report``: the card's name, the peak of its memory
     allocated in this process, (op, start, end) of every batch the
     service evaluated, on the monotonic clock, and ``forbidden``: the
@@ -45,6 +48,7 @@ def main(argv=None) -> int:
     from benchmark.harness import runner, trace
     from pintron_tpu_torch import devservice
     from pintron_tpu_torch.ops import offload
+    from pintron_tpu_torch.runtime import timing
 
     if args.fault:
         from benchmark.harness import faults
@@ -56,9 +60,13 @@ def main(argv=None) -> int:
         what = payload["what"]
         if what == "trace_start":
             state["trace"] = trace.start()
+            timing.trace_on()
             return None
         if what == "trace_stop":
-            return trace.stop(state.pop("trace"))
+            timing.trace_off()
+            spans = [s for s in timing.trace_take()
+                     if s.attrs.get("op") != "bench_ctl"]
+            return {**trace.stop(state.pop("trace")), "spans": spans}
         if what == "report":
             dev = torch.device(args.device)
             cuda = dev.type == "cuda"

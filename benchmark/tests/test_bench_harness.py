@@ -1,13 +1,14 @@
 """The benchmark's own tests (not collected by the repository's
 ``tests/`` run):
 
-    python -m pytest benchmark/tests -q            # on the CPU, ~10 min
+    python -m pytest benchmark/tests -q            # on the CPU, ~22 min
     python -m pytest benchmark/tests -q -m cuda    # on a card
 
 On the CPU every cell is rehearsed with the port's plain versions
 (``device="cpu"``), the service's cell on TP53 alone with 2 EST
-workers; the result's last line and the checks' lines are held to the
-contract.
+workers, and again with two loci at once (``clients`` 2), each in a
+spawned job, on three small upstream loci; the result's last line and
+the checks' lines are held to the contract.
 Every cell, configuration and metric must be found by name, no module
 of the benchmark may import ``jax``, ``jaxlib``, ``flax`` or
 ``pintron_tpu`` (top-level names compared whole), neither in the
@@ -16,7 +17,9 @@ reference nothing of ``pintron_tpu_torch`` either.  The faults (an
 answer altered where it is produced, half of each batch left out, one
 fork worker's results lost in STEP 2's merge) and the control (the
 reference's bfloat16 PWM scores in the program's place) must each turn
-``correct`` false, in one process and through the device service.
+``correct`` false, in one process, through the device service and in
+the spawned jobs; a job that dies counts as a failed locus, and one
+that loaded ``jax`` keeps the result from being printed.
 """
 
 from __future__ import annotations
@@ -24,12 +27,15 @@ from __future__ import annotations
 import ast
 import io
 import json
+import multiprocessing
 import os
 import pathlib
 import re
 import shutil
 import subprocess
 import sys
+import threading
+import time
 from contextlib import redirect_stderr, redirect_stdout
 
 import pytest
@@ -49,6 +55,22 @@ SERVICE_CELL = "batch-upstream-loci.sharded3"
 SHARDED = {"traffic": {"loci": ["test-TP53"], "est_workers": 2}}
 SMALL_LOCI = {"traffic": {"loci": ["test-AMBN", "test-mattia1"]}}
 CELL_SIZES = {"cli-upstream-loci.all9": None, SERVICE_CELL: SHARDED}
+UPSTREAM = json.loads((BENCH / "configs"
+                       / "cli-upstream-loci.json").read_text())["loci"]
+
+
+def _batch(loci, clients, est_workers):
+    """The service's cell over other upstream loci, ``clients`` at once,
+    each with ``est_workers`` EST workers."""
+    return {"config": {"loci": {k: UPSTREAM[k] for k in loci}},
+            "traffic": {"loci": loci, "clients": clients,
+                        "est_workers": est_workers}}
+
+
+SMALL3 = ["test-AMBN", "test-mattia1", "test-mattia3"]
+CONCURRENT = _batch(SMALL3, 2, 1)
+# a locus that shards (2 EST workers) in a job beside a small one
+CONCURRENT_SHARDED = _batch(["test-TP53", "test-AMBN"], 2, 2)
 
 
 def _rehearse(cell, overrides=None, trace=0):
@@ -65,12 +87,20 @@ def _rehearse(cell, overrides=None, trace=0):
 
 def _judged(cell, overrides, fault=None, control=False):
     """One window of ``cell`` on the CPU, judged."""
+    return _window(cell, overrides, fault, control)[1]
+
+
+def _window(cell, overrides, fault=None, control=False, trace=False):
+    """One window of ``cell`` on the CPU: (the window, its verdict, the
+    metric readers' context, the recorder's files)."""
     run = runner.Run(cell, device="cpu", fault=fault, overrides=overrides)
     try:
         run.setup(SEED)
         if control:
             run.control()
-        return run.judge(run.window(SEED, 0.0))
+        win = run.window(SEED, 0.0, trace=trace)
+        files = sorted(os.listdir(run.recorder.dir))
+        return win, run.judge(win), cli.context(win, 0.0), files
     finally:
         run.close()
 
@@ -205,7 +235,9 @@ def test_a_traced_rehearsal_reads_the_per_layer_metrics():
     assert res["correct"] is True
     # the CPU has no device timeline: its readers return nothing
     assert {"pipeline.step2_pct", "dp.device_cell_pct",
-            "service.eval_pct"} <= set(res["metrics"])
+            "service.eval_pct", "service.merge_ratio",
+            "step3.fork_ms"} <= set(res["metrics"])
+    assert res["metrics"]["service.merge_ratio"]["value"] >= 1
     assert "kernel.busy_ms" not in res["metrics"]
     assert {"busy_s", "window_s"} <= set(res["device"])
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
@@ -256,6 +288,147 @@ def test_a_service_that_loaded_jax_prints_no_result(tmp_path, monkeypatch):
     assert out == []
     assert "['jax'] in the device service" in err[-1]
     assert "jax" not in sys.modules
+
+
+# ---- loci several at once, each in a spawned job ---------------------------
+
+def _most_at_once(runs):
+    edges = sorted([(r["dispatched"], 1) for r in runs]
+                   + [(r["ended"], -1) for r in runs])
+    most = n = 0
+    for _t, step in edges:
+        n += step
+        most = max(most, n)
+    return most
+
+
+def test_concurrent_jobs_rehearse_correct_in_whole_sweeps():
+    rc, out, err = _rehearse(SERVICE_CELL, CONCURRENT)
+    assert rc == 0, err[-20:]
+    res = json.loads(out[-1])
+    assert res["correct"] is True, res["checks"]
+    assert res["attempted"] == len(SMALL3) and res["failed"] == 0
+    want = {m["name"] for m in runner.cell_metrics(SPEC, SERVICE_CELL,
+                                                   False)}
+    assert set(res["metrics"]) == want
+    jobs = res["info"]["jobs"]
+    assert len(jobs["spawn_s"]) == len(SMALL3)
+    assert all(x > 0 for x in jobs["spawn_s"] + jobs["import_s"]
+               + jobs["exit_s"])
+    assert jobs["drain_s"] > 0
+    lines = [f"check {k} {c['value']!r} limit {c['limit']!r}"
+             for k, c in res["checks"].items()]
+    assert err[-len(lines):] == lines and list(res)[-1] == "checks"
+
+
+def test_concurrent_jobs_record_and_compare_what_one_client_does():
+    """Two at once compare the same device answers as one at a time on
+    the same loci, each job recording in a file of its own pid; no
+    spans are kept untraced."""
+    win, verdict, ctx, files = _window(SERVICE_CELL, CONCURRENT)
+    _w1, one, _c1, _f1 = _window(SERVICE_CELL, _batch(SMALL3, 1, 1))
+    assert verdict["correct"] is True and one["correct"] is True
+    assert verdict["compared"] == one["compared"]
+    assert {r["locus"]["name"] for r in win["runs"]} == set(SMALL3)
+    pids = {r["pid"] for r in win["runs"]}
+    assert len(pids) == len(SMALL3) and os.getpid() not in pids
+    assert files == sorted(f"{pid}.pkl" for pid in pids)
+    assert _most_at_once(win["runs"]) == 2
+    starts = [r["start"] for r in win["runs"]]
+    assert starts == sorted(starts)
+    assert ctx["spans"] == {}
+    assert multiprocessing.active_children() == []
+
+
+@pytest.mark.parametrize("fault,overrides", [
+    ("answer", CONCURRENT), ("half", CONCURRENT),
+    ("worker", CONCURRENT_SHARDED), ("control", CONCURRENT)])
+def test_a_fault_turns_correct_false_in_concurrent_jobs(fault, overrides):
+    """Every fault of ``faults.py`` that fails one client, and the
+    control, fail two at once: the client's reach each job."""
+    control = fault == "control"
+    verdict = _judged(SERVICE_CELL, overrides, fault=None if control
+                      else fault, control=control)
+    assert verdict["correct"] is False
+    numbers = {k: v for k, (v, _lim) in verdict["checks"].items()}
+    if control:
+        assert numbers["pwm_gap"] > 10 * verdict["checks"]["pwm_gap"][1]
+    elif fault == "worker":
+        assert numbers["artifacts_differ"] > 0
+    else:
+        assert numbers["device_answers_differ"] > 0
+
+
+def test_a_killed_job_counts_as_failed():
+    """Each job of the window killed as its STEP 4 starts: every locus
+    fails, and the window ends without waiting on a dead process."""
+    box = {}
+
+    def judge():
+        box["verdict"] = _judged(SERVICE_CELL, CONCURRENT, fault="die")
+    t0 = time.monotonic()
+    th = threading.Thread(target=judge, daemon=True)
+    th.start()
+    th.join(300)
+    assert not th.is_alive(), "the window waited on a dead job"
+    verdict = box["verdict"]
+    assert verdict["correct"] is False
+    assert verdict["checks"]["loci_failed"][0] == len(SMALL3)
+    assert time.monotonic() - t0 < 300
+    assert multiprocessing.active_children() == []
+
+
+def test_one_process_deployments_refuse_concurrent_clients():
+    with pytest.raises(ValueError):
+        runner.Run("cli-upstream-loci.all9", device="cpu",
+                   overrides={"traffic": {"clients": 2}})
+    with pytest.raises(ValueError):
+        runner.Run(SERVICE_CELL, device="cpu", fault="die",
+                   overrides=SHARDED)
+
+
+def test_a_job_that_loaded_jax_prints_no_result(tmp_path, monkeypatch):
+    """A stand-in ``jax`` that only the spawned jobs import at start-up
+    (``sitecustomize``): the run prints no result line."""
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "jax" / "__init__.py").write_text("")
+    (tmp_path / "sitecustomize.py").write_text(
+        "with open('/proc/self/cmdline', 'rb') as f:\n"
+        "    if b'--multiprocessing-fork' in f.read().split(b'\\0'):\n"
+        "        import jax\n")
+    monkeypatch.setenv("PYTHONPATH", str(tmp_path))
+    rc, out, err = _rehearse(SERVICE_CELL, _batch(SMALL3[1:], 2, 1))
+    assert rc == cli.EXIT_FORBIDDEN
+    assert out == []
+    assert "[] in the device service, ['jax'] in the loci's jobs" in err[-1]
+    assert "jax" not in sys.modules
+
+
+def test_a_traced_concurrent_window_has_every_process_spans():
+    """The program's spans of the harness, the service and each job,
+    each job one ``pintron_locus`` for its run, read by the per-layer
+    metrics."""
+    loci = SMALL3[1:]
+    win, verdict, ctx, _files = _window(SERVICE_CELL, _batch(loci, 2, 1),
+                                        trace=True)
+    assert verdict["correct"] is True
+    jobs = {f"job-{r['pid']}" for r in win["runs"]}
+    assert set(ctx["spans"]) == {"harness", "service"} | jobs
+    lo, hi = ctx["window"]
+    for key in jobs:
+        names = [s.name for s in ctx["spans"][key]]
+        assert names.count("pintron_locus") == 1
+        assert "pintron_step3_child" in names
+        assert all(lo <= s.start <= s.end <= hi for s in ctx["spans"][key])
+    service = {s.name for s in ctx["spans"]["service"]}
+    assert {"pintron_service_eval", "pintron_service_request"} <= service
+    for r in win["runs"]:
+        assert {"step2", "step4", "step8"} <= {st for st, _s, _e
+                                               in r["steps"]}
+    for name in ("service.merge_ratio", "step3.fork_ms",
+                 "pipeline.step2_pct", "dp.device_cell_pct"):
+        value = runner.metric_module(name).read(ctx)
+        assert value is not None and value > 0, name
 
 
 def test_without_a_card_the_command_prints_no_result(tmp_path):

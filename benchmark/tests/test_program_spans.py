@@ -1,8 +1,9 @@
 """The per-layer metrics that read the program's own spans, rehearsed on
 the CPU (``python -m pytest benchmark/tests -q``): a traced run of the
 in-process cell on two small upstream loci reports
-``pipeline.host_stages_pct`` beside every per-layer metric it reported
-before, and names its idle gaps by the program's spans below the STEP."""
+``pipeline.host_stages_pct`` and ``step3.fork_ms`` beside every
+per-layer metric it reported before, and names its idle gaps by the
+program's spans below the STEP."""
 
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ def test_a_traced_run_reads_the_program_spans():
     # device timeline: those of the card read nothing here)
     assert {"pipeline.step2_pct", "step2.host_ms",
             "dp.device_cell_pct"} <= set(metrics)
+    # STEP 3 beside its guard server's child, from the recorder's spans
+    assert metrics["step3.fork_ms"]["value"] > 0
     listed = {m["name"] for m in runner.cell_metrics(runner.spec(), CELL,
                                                      True)}
     assert "pipeline.host_stages_pct" in listed

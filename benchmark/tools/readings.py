@@ -2,9 +2,9 @@
 set-up), a short window of a cell on each of a dozen seeds or more,
 judged as a run judges it, then, where asked, a fault of the process
 that runs the pipeline (``harness/faults.py``'s ``worker``: one fork
-worker's results lost in STEP 2's merge) on a few more, and last the
-control (the reference's bfloat16 PWM scores in the program's place),
-judged alike.
+worker's results lost in STEP 2's merge; in each job, with ``clients``
+> 1) on a few more, and last the control (the reference's bfloat16 PWM
+scores in the program's place), judged alike.
 
     python3 benchmark/tools/readings.py --workload CELL \
         --seeds A,B,... --control-seeds C,D,E \
@@ -41,7 +41,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     sys.path[0] = ROOT
     os.environ["PYTORCH_NVML_BASED_CUDA_CHECK"] = "1"
-    from benchmark.harness import faults, runner
+    from benchmark.harness import runner
 
     seeds = [int(s) for s in args.seeds.split(",")]
     controls = [int(s) for s in args.control_seeds.split(",") if s]
@@ -57,7 +57,7 @@ def main(argv=None) -> int:
                 undo()
                 undo = None
             if kind == "fault" and batch:
-                undo = faults.plant_client(args.fault)
+                undo = run.plant_client(args.fault)
             if kind == "control" and batch:
                 run.control()
             for seed in batch:
