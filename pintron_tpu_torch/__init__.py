@@ -14,6 +14,13 @@ unless the caller asks for ``"cpu"`` (the plain ops) or ``"host"`` (the
 native host path with no device batch).
 """
 
+import time as _time
+
+# the package's import starts here: a process's start-up span
+# (``runtime/timing.py``, ``pintron_startup``) times the package and its
+# torch from this line, and starts here where the OS gives no start
+IMPORT_START = _time.monotonic()
+
 __version__ = "0.2.0"
 
 from pintron_tpu_torch.config import Config

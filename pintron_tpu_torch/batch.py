@@ -19,7 +19,10 @@ and each locus's STEP 2 shards over the cores left to it
 (``PINTRON_EST_WORKERS`` = cores // loci at once): with at least as
 many loci as cores that is one worker, so STEP 2 is not sharded.
 ``-k`` keeps each locus's intermediate files, as the pipeline's ``-k``
-does, so that its STEP 2 and STEP 4 artifacts can be checked.
+does, so that its STEP 2 and STEP 4 artifacts can be checked.  Each
+job's line carries ``startup_s``, its process's start-up: from the
+process's start to its locus's, the interval of the pipeline's
+``pintron_startup`` span on the same clock (``runtime/timing.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import tempfile
 import time
 
 from pintron_tpu_torch.ops import offload
+from pintron_tpu_torch.runtime import timing
 
 
 def _run_job(job, device, keep_intermediate):
@@ -52,12 +56,20 @@ def _run_job(job, device, keep_intermediate):
             d = json.load(f)
         return {"workdir": workdir, "gene": gene, "ok": True,
                 "seconds": round(time.time() - t0, 2),
+                "startup_s": _startup_s(),
                 "isoforms": len(d.get("isoforms", {})),
                 "introns": len(d.get("introns", {}))}
     except Exception as e:  # noqa: BLE001 - a job must not kill its peers
         return {"workdir": workdir, "gene": gene, "ok": False,
                 "seconds": round(time.time() - t0, 2),
+                "startup_s": _startup_s(),
                 "error": f"{type(e).__name__}: {e}"}
+
+
+def _startup_s():
+    """This job's start-up in seconds, None before its locus opened."""
+    s = timing.startup_seconds()
+    return None if s is None else round(s, 3)
 
 
 def _job_worker(q, job, device, keep_intermediate):

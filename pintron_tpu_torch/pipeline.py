@@ -28,7 +28,9 @@ the whole pipeline there (``pintron-<pid>.json``), and the spans the
 recorder kept (``runtime/timing.py``; STEP 3's child's and STEP 2's
 fork workers' included) beside it as ``spans-<pid>.jsonl``.  A locus is
 one ``pintron_locus`` span (attrs: gene, records) over ``pintron_step1``
-... ``pintron_step8``, ``pintron_gtf`` and ``pintron_cleanup``; a forked
+... ``pintron_step8``, ``pintron_gtf`` and ``pintron_cleanup``; a
+process's first locus is preceded by ``pintron_startup`` (attrs:
+package_s, pid), from the process's start to the locus's; a forked
 stage's child opens ``pintron_step<n>_child``; the device batches carry
 the spans ``pintron_kband_full``, ``pintron_kband_band``,
 ``pintron_nw``, ``pintron_gap``, ``pintron_rowmin``, ``pintron_edit``
@@ -207,7 +209,9 @@ def pintron_pipeline(workdir: str = ".",
     # PINTRON_TORCH_PROFILE=<dir>: a torch.profiler trace of the whole
     # pipeline, and the recorder's spans beside it
     prof, prof_dir = _start_profiler()
-    with timing.span("pintron_locus", gene=gene) as locus:
+    with timing.timed_span("pintron_locus", gene=gene) as locus:
+        # a process's first locus: its start-up, process start to here
+        timing.startup(locus.start)
         with timing.span("pintron_step1"):
             # STEP 1: input checks (pintron.py:824-873)
             log.info("STEP  1:  Checking executables and input files...")

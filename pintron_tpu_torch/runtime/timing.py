@@ -12,7 +12,9 @@ Rebuild of the reference's observability layer:
   (``card_line``);
 * the span recorder (``span``, ``trace_on`` ... ``trace_take``): the
   port's named stretches of work for torch.profiler, and kept in memory
-  with their parents, processes and threads while recording is on.
+  with their parents, processes and threads while recording is on;
+* a process's start-up (``startup``): from the process's start to its
+  first locus, the span ``pintron_startup``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import time
 from typing import Dict, List, NamedTuple, Optional
 
 from torch.autograd.profiler import record_function
+
+from pintron_tpu_torch import IMPORT_START
 
 log = logging.getLogger("pintron.timing")
 
@@ -168,9 +172,11 @@ _ID = 3   # the id's place in a kept span
 
 
 def _after_fork() -> None:
-    global _KEPT, _PID
+    global _KEPT, _PID, _STARTED, _STARTUP
     _KEPT = []
     _PID = os.getpid()
+    # a forked child's start-up is its parent's, not its own
+    _STARTED, _STARTUP = True, None
 
 
 os.register_at_fork(after_in_child=_after_fork)
@@ -349,3 +355,53 @@ def write_spans(directory: str, spans) -> str:
         for s in spans:
             f.write(json.dumps(s._asdict()) + "\n")
     return path
+
+
+# ---- a process's start-up ------------------------------------------------
+# The pipeline calls ``startup(t)`` as a process's first locus opens at
+# ``t``: the process's start-up runs from its start (the OS's record of
+# it, else the package's import) to ``t``.  With recording on at that
+# call it is kept as the span ``pintron_startup`` (attrs: ``package_s``,
+# the package's import with its torch, timed from the package's first
+# line until this module, which holds torch, is loaded; ``pid``).  Only
+# the first call keeps anything, recording on or off, and a forked child
+# never does.
+
+_IMPORTED = time.monotonic()   # torch and this module loaded
+_STARTED = False               # a locus opened here, or this is a fork
+_STARTUP: Optional[tuple] = None   # (start, end) once it did
+
+
+def _process_start() -> float:
+    """This process's start on time.monotonic(): ``/proc/self/stat``'s
+    start time against ``/proc/uptime``, both truncated, taken at the
+    latest they allow, so never before the true start; the package's
+    import where they cannot be read."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+        now = time.monotonic()
+        least_age = up - (ticks + 1) / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return IMPORT_START
+    return min(IMPORT_START, now - max(0.0, least_age))
+
+
+def startup(end: float) -> None:
+    """At a process's first locus, opened at ``end``: keep its start-up,
+    and record it as ``pintron_startup`` with recording on."""
+    global _STARTED, _STARTUP
+    if _STARTED:
+        return
+    _STARTED = True
+    _STARTUP = (_process_start(), end)
+    record("pintron_startup", *_STARTUP, package_s=_IMPORTED - IMPORT_START,
+           pid=_PID)
+
+
+def startup_seconds() -> Optional[float]:
+    """This process's start-up in seconds once its first locus opened,
+    else None."""
+    return None if _STARTUP is None else _STARTUP[1] - _STARTUP[0]

@@ -2,8 +2,10 @@
 CPU: round trips equal to the local entries for all six ops, the
 ``evaluated`` masks sliced per client, errors raised in the client (no
 host fallback), STEP 2 sharded over fork workers through the service,
-and the batch driver with ``--device cpu``.  Inputs are made from a
-seed with numpy; the loci come from ``tests/golden/``."""
+and the batch driver with ``--device cpu``: two loci, and a manifest of
+three at its defaults (a job a locus, one EST worker each, each job's
+start-up in its line and its spans).  Inputs are made from a seed with
+numpy; the loci come from ``tests/golden/``."""
 
 import json
 import os
@@ -20,12 +22,16 @@ import torch
 from pintron_tpu_torch.native import get_lib
 from pintron_tpu_torch.ops import offload
 from pintron_tpu_torch.ops.pwm import pwm_tables
+from pintron_tpu_torch.runtime import timing
 from pintron_tpu_torch.stages import est_fact
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALPHA = np.array(list("ACGT"))
 STAGE2 = ("raw-multifasta-out.txt", "processed-ests.txt", "megs.txt",
           "processed-megs.txt", "meg-edges.txt")
+# STEPs 2-4's artifacts, as the benchmark's check compares them
+STEP_ARTIFACTS = STAGE2 + ("out-agree.txt", "out-after-intron-agree.txt",
+                           "predicted-introns.txt")
 COUNTS = ("problems", "device_problems", "device_cells", "nw_problems",
           "gap_problems", "rb_problems")
 
@@ -343,3 +349,72 @@ def test_batch_driver_on_the_cpu_service(golden, tmp_path):
             (gold / "full.json").read_bytes(), case
         assert (work / "pintron-all-isoforms.gtf").read_bytes() == \
             (gold / "pintron-all-isoforms.gtf").read_bytes(), case
+
+
+# three small loci at batch.py's defaults, a job a locus, each with its
+# record count (the ``records`` of its ``pintron_locus`` span)
+MANIFEST = (("test-788", "AAMP", 10), ("test-AMBN", "AMBN", 25),
+            ("test-mattia1", "AAMP", 41))
+
+
+@pytest.fixture(scope="module")
+def manifest_run(golden, tmp_path_factory):
+    """python -m pintron_tpu_torch.batch --device cpu --jobs 3 -k over
+    three golden loci, one EST worker each, with PINTRON_TORCH_PROFILE
+    set: (the root, the summary's lines, each span file's spans)."""
+    if get_lib() is None:
+        pytest.skip("native library unavailable")
+    root = tmp_path_factory.mktemp("manifest")
+    rows = [f"{root / case}\t{golden(case) / 'genomic.txt'}\t"
+            f"{golden(case) / 'ests.txt'}\t{gene}\thuman"
+            for case, gene, _n in MANIFEST]
+    (root / "jobs.tsv").write_text("\n".join(rows) + "\n")
+    env = _env()
+    env["PINTRON_EST_WORKERS"] = "1"
+    env[timing.PROFILE_ENV] = str(root / "prof")
+    r = subprocess.run(
+        [sys.executable, "-m", "pintron_tpu_torch.batch", "--manifest",
+         str(root / "jobs.tsv"), "--jobs", "3", "--device", "cpu", "-k",
+         "--summary", str(root / "sum.jsonl")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = [json.loads(ln) for ln in
+             (root / "sum.jsonl").read_text().splitlines()]
+    spans = []
+    for path in sorted((root / "prof").glob("spans-*.jsonl")):
+        with open(path) as f:
+            spans.append([json.loads(ln) for ln in f])
+    return root, lines, spans
+
+
+@pytest.mark.parametrize("case,gene,records", MANIFEST,
+                         ids=[m[0] for m in MANIFEST])
+def test_batch_manifest_at_its_defaults_matches_the_goldens(
+        manifest_run, golden, case, gene, records):
+    """Each job of a three-locus manifest, three at once: its STEP 2-4
+    artifacts and finals equal the goldens, its line carries its
+    start-up, and its spans hold one ``pintron_startup``, ending where
+    its locus starts."""
+    root, lines, spans = manifest_run
+    assert lines[-1]["ok"] == len(MANIFEST) and lines[-1]["failed"] == 0
+    gold, work = golden(case), root / case
+    for name in STEP_ARTIFACTS:
+        assert (work / name).read_bytes() == (gold / name).read_bytes(), \
+            name
+    assert (work / "pintron-full-output.json").read_bytes() == \
+        (gold / "full.json").read_bytes()
+    assert (work / "pintron-all-isoforms.gtf").read_bytes() == \
+        (gold / "pintron-all-isoforms.gtf").read_bytes()
+    (line,) = [ln for ln in lines[:-1] if ln["workdir"] == str(work)]
+    assert line["ok"] and line["gene"] == gene
+    assert line["startup_s"] > 0
+    # the job's span file: the one whose locus has this locus's records
+    (mine,) = [f for f in spans if any(
+        s["name"] == "pintron_locus" and s["attrs"]["records"] == records
+        for s in f)]
+    (startup,) = [s for s in mine if s["name"] == "pintron_startup"]
+    (locus,) = [s for s in mine if s["name"] == "pintron_locus"]
+    assert startup["start"] < startup["end"] == locus["start"]
+    assert startup["attrs"]["pid"] == startup["pid"] == locus["pid"]
+    assert line["startup_s"] == pytest.approx(
+        startup["end"] - startup["start"], abs=2e-3)

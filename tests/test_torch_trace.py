@@ -6,7 +6,9 @@ pid inside STEP 3, and ``PINTRON_TORCH_PROFILE``'s span file; STEP 2
 sharded over 2 fork workers through a CPU device service that records
 (each worker's spans sent back, every request's arrival before its
 evaluation); a decorated span still named in a ``torch.profiler``
-trace; the recorder's parents across threads and forks."""
+trace; the recorder's parents across threads and forks; a process's
+start-up, ``pintron_startup``, kept at its first locus alone and never
+in a forked child."""
 
 import glob
 import json
@@ -22,6 +24,7 @@ import time
 import pytest
 import torch
 
+import pintron_tpu_torch
 from pintron_tpu_torch import pipeline
 from pintron_tpu_torch.native import get_lib
 from pintron_tpu_torch.ops import offload
@@ -395,3 +398,100 @@ def test_recording_off_costs_no_kept_span_and_no_clock():
         pass
     assert tsp.id is None and tsp.end >= tsp.start
     assert timing.trace_take() == []
+
+
+# ---- a process's start-up ----------------------------------------------------
+
+@pytest.fixture
+def fresh_process(monkeypatch):
+    """The recorder as a process that has opened no locus has it."""
+    monkeypatch.setattr(timing, "_STARTED", False)
+    monkeypatch.setattr(timing, "_STARTUP", None)
+
+
+def _traced(work):
+    timing.trace_take()
+    timing.trace_on()
+    try:
+        _run_pipeline(work)
+    finally:
+        timing.trace_off()
+    return timing.trace_take()
+
+
+@pytest.fixture(scope="module")
+def first_two_loci(golden, tmp_path_factory):
+    """AMBN's pipeline twice with recording on, in a process that had
+    opened no locus: (the first locus's spans, the second's, the
+    start-up's seconds after both)."""
+    if get_lib() is None:
+        pytest.skip("native library unavailable")
+    os.environ.pop("PINTRON_DEVICE", None)
+    root = tmp_path_factory.mktemp("startup")
+    saved = timing._STARTED, timing._STARTUP
+    timing._STARTED, timing._STARTUP = False, None
+    try:
+        loci = [_traced(_locus(golden("test-AMBN"), root / f"ambn{n}"))
+                for n in range(2)]
+        return loci[0], loci[1], timing.startup_seconds()
+    finally:
+        timing._STARTED, timing._STARTUP = saved
+
+
+def test_the_first_locus_records_the_start_up_up_to_its_own(first_two_loci):
+    first, _second, seconds = first_two_loci
+    (startup,) = [s for s in first if s.name == "pintron_startup"]
+    (locus,) = [s for s in first if s.name == "pintron_locus"]
+    assert startup.start < locus.start == startup.end
+    assert startup.start <= pintron_tpu_torch.IMPORT_START
+    assert startup.parent is None
+    assert startup.pid == startup.attrs["pid"] == os.getpid()
+    assert 0 < startup.attrs["package_s"] < startup.end - startup.start
+    assert seconds == startup.end - startup.start
+
+
+def test_a_second_locus_records_no_start_up(first_two_loci):
+    _first, second, _seconds = first_two_loci
+    names = [s.name for s in second]
+    assert names.count("pintron_locus") == 1
+    assert "pintron_startup" not in names
+
+
+def test_a_start_up_unrecorded_at_the_first_locus_is_never_recorded(
+        golden, tmp_path, monkeypatch, fresh_process):
+    if get_lib() is None:
+        pytest.skip("native library unavailable")
+    monkeypatch.delenv("PINTRON_DEVICE", raising=False)
+    _run_pipeline(_locus(golden("test-AMBN"), tmp_path / "off"))
+    assert timing.trace_take() == []
+    kept = timing.startup_seconds()
+    assert kept > 0
+    names = [s.name for s in _traced(_locus(golden("test-AMBN"),
+                                            tmp_path / "on"))]
+    assert "pintron_locus" in names and "pintron_startup" not in names
+    assert timing.startup_seconds() == kept
+
+
+def test_a_forked_child_records_no_start_up(fresh_process):
+    """A child forked before its parent's first locus keeps no start-up;
+    the parent still keeps its own."""
+    ctx = multiprocessing.get_context("fork")
+    r, w = ctx.Pipe(duplex=False)
+    timing.trace_on()
+
+    def child():
+        timing.startup(time.monotonic())
+        w.send((timing.trace_take(), timing.startup_seconds()))
+
+    p = ctx.Process(target=child)
+    p.start()
+    assert r.poll(30), "the child sent nothing"
+    sent = r.recv()
+    p.join(30)
+    assert p.exitcode == 0
+    assert sent == ([], None)
+    t = time.monotonic()
+    timing.startup(t)
+    (startup,) = timing.trace_take()
+    assert startup.name == "pintron_startup" and startup.end == t
+    assert startup.start < t
