@@ -22,7 +22,10 @@ many loci as cores that is one worker, so STEP 2 is not sharded.
 does, so that its STEP 2 and STEP 4 artifacts can be checked.  Each
 job's line carries ``startup_s``, its process's start-up: from the
 process's start to its locus's, the interval of the pipeline's
-``pintron_startup`` span on the same clock (``runtime/timing.py``).
+``pintron_startup`` span on the same clock (``runtime/timing.py``), and
+``torch_loaded``, whether torch was loaded in the job when it reported:
+a job that is a client of the service never loads it, so its start-up
+is the interpreter, numpy and the port's modules.
 """
 
 from __future__ import annotations
@@ -57,12 +60,14 @@ def _run_job(job, device, keep_intermediate):
         return {"workdir": workdir, "gene": gene, "ok": True,
                 "seconds": round(time.time() - t0, 2),
                 "startup_s": _startup_s(),
+                "torch_loaded": "torch" in sys.modules,
                 "isoforms": len(d.get("isoforms", {})),
                 "introns": len(d.get("introns", {}))}
     except Exception as e:  # noqa: BLE001 - a job must not kill its peers
         return {"workdir": workdir, "gene": gene, "ok": False,
                 "seconds": round(time.time() - t0, 2),
                 "startup_s": _startup_s(),
+                "torch_loaded": "torch" in sys.modules,
                 "error": f"{type(e).__name__}: {e}"}
 
 

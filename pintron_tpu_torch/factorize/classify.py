@@ -19,10 +19,10 @@ from typing import Iterable, Tuple
 
 import numpy as np
 
-from pintron_tpu_torch.factorize.pwm_data import CV, MAXV, PWM
+from pintron_tpu_torch.factorize.pwm_data import (CV, MAXV, PWM, _BASE,
+                                                  pwm_tables)
 from pintron_tpu_torch.factorize.seq_util import real_substring
 from pintron_tpu_torch.ops import offload
-from pintron_tpu_torch.ops.pwm import _BASE, pwm_tables
 
 INTRON_U12 = 0
 INTRON_U2 = 1

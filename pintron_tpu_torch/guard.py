@@ -15,9 +15,8 @@ places:
     never torch, so each fork copies a small image, where a fork of the
     process that maps torch and the CUDA context cost 142-250 ms a
     locus on the H100's host (PERF.md);
-  * any other stage (``--device host``'s STEPs 2 and 4, whose modules
-    import torch at the top) is forked from the caller, and so is a
-    served stage when no server can be had.
+  * any other stage (``--device host``'s STEPs 2 and 4) is forked from
+    the caller, and so is a served stage when no server can be had.
 
 The server serves one request at a time over a pair of pipes, a JSON
 line each way, and hands each to a child it forked after the last

@@ -13,37 +13,19 @@ in ``pintron_tpu_torch.ops.align``:
     version.
 
 ``LAUNCHES`` counts kernel launches per kernel, for these wrappers and
-for those of ``pintron_tpu_torch.ops.traceback`` and ``.pwm``.
-Launches come from the offload's executor thread and its dispatch
-threads, so the count is taken under a lock.
+for those of ``pintron_tpu_torch.ops.traceback`` and ``.pwm``; it and
+``KMAX`` live in ``ops/limits.py``, which a service client reads
+without loading torch.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from pintron_tpu_torch.ops import align
-
-# the widest band kband_kernel takes: W = 2*k_max+1 <= 33 cells a lane
-# of 32 lanes (csrc/kband.cu), the reference's widest budget route
-KMAX = 512
-
-LAUNCHES = {"kband": 0, "edit_score": 0, "nw": 0, "gap": 0,
-            "rowmin": 0, "pwm": 0}
-_LAUNCH_LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _LAUNCH_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count(name: str) -> None:
-    with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+from pintron_tpu_torch.ops.limits import (  # noqa: F401 - kband's names
+    KMAX, LAUNCHES, reset_launches)
+from pintron_tpu_torch.ops.limits import count as _count
 
 
 def edit_layout(max_rows: int) -> tuple:

@@ -35,31 +35,83 @@ The device is a module setting made by the caller (``use_device``).  On
 a CPU device the wrappers run the plain PyTorch versions.  With
 ``PINTRON_TORCH_SERVICE`` set, every entry sends its batch to the
 GPU-owning service (``pintron_tpu_torch.devservice``) instead, and the
-process never creates a CUDA context.
+process never creates a CUDA context, nor loads torch: torch and the
+kernel wrappers load with the first batch evaluated in this process
+(``_local``), and a client holds its device by name (``DeviceName``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import os
 import threading
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
-from pintron_tpu_torch.ops.align import from_numpy_batch
-from pintron_tpu_torch.ops.kband import (KMAX, banded_edit_distance_cuda,
-                                         batch_edit_distance_score_cuda)
-from pintron_tpu_torch.ops.pwm import pwm_scores_cuda
-from pintron_tpu_torch.ops.traceback import (MAX_WIDTH,
-                                             batch_edit_rowmin_cuda,
-                                             batch_gap_traceback_cuda,
-                                             batch_nw_traceback_cuda,
-                                             gap_rows, gap_scratch,
-                                             nw_scratch)
+from pintron_tpu_torch.ops.limits import KMAX, MAX_WIDTH
 from pintron_tpu_torch.runtime import timing
+
+# torch and the kernel wrappers, by the module that holds each: bound in
+# this module by the first batch evaluated here (``_load``), never by a
+# service client's, which sends its batches away.  They read as module
+# attributes all the same (``offload.batch_nw_traceback_cuda``: reading
+# one loads them), and a stand-in set on the module stays.
+_KBAND = "pintron_tpu_torch.ops.kband"
+_TRACEBACK = "pintron_tpu_torch.ops.traceback"
+_LAZY = {"torch": "torch", "from_numpy_batch": "pintron_tpu_torch.ops.align",
+         "banded_edit_distance_cuda": _KBAND,
+         "batch_edit_distance_score_cuda": _KBAND,
+         "pwm_scores_cuda": "pintron_tpu_torch.ops.pwm",
+         "batch_edit_rowmin_cuda": _TRACEBACK,
+         "batch_gap_traceback_cuda": _TRACEBACK,
+         "batch_nw_traceback_cuda": _TRACEBACK, "gap_rows": _TRACEBACK,
+         "gap_scratch": _TRACEBACK, "nw_scratch": _TRACEBACK}
+
+
+def _load() -> None:
+    """Bind torch and the kernel wrappers here; a name bound already
+    stays."""
+    names = globals()
+    for name, modname in _LAZY.items():
+        if name not in names:
+            mod = importlib.import_module(modname)
+            names[name] = mod if name == modname else getattr(mod, name)
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        _load()
+        return globals()[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+class DeviceName(NamedTuple):
+    """A device by type and index, as a service client holds it: no
+    torch.device, so that the client never loads torch.  ``str`` reads
+    as torch.device's (``cuda``, ``cuda:0``, ``cpu``)."""
+    type: str
+    index: Optional[int] = None
+
+    @classmethod
+    def of(cls, device) -> "DeviceName":
+        name = str(device)
+        kind, colon, index = name.partition(":")
+        if kind not in ("cuda", "cpu") or (colon and not index.isdigit()):
+            raise ValueError(f"unsupported device {name}")
+        return cls(kind, int(index) if colon else None)
+
+    def __str__(self) -> str:
+        return self.type if self.index is None else f"{self.type}:{self.index}"
+
+
+def _local(device) -> "torch.device":
+    """``device`` as a torch.device, for a batch evaluated in this
+    process; loads torch and the kernel wrappers."""
+    _load()
+    return torch.device(str(device))
 
 
 def _p2(x: int, lo: int = 16) -> int:
@@ -341,9 +393,9 @@ _DEVICE = None
 
 
 def set_device(device) -> None:
-    """Select the torch device the batches run on."""
+    """Select the device the batches run on (held by name)."""
     global _DEVICE
-    _DEVICE = torch.device(device)
+    _DEVICE = DeviceName.of(device)
 
 
 HOST = "host"
@@ -352,8 +404,7 @@ HOST = "host"
 def is_host(device) -> bool:
     """True for the entry points' ``device="host"``: the native host
     path with no device batch (the JAX package's default mode).  The
-    other values are torch devices (``use_device``); None is none of
-    them."""
+    other values are devices (``use_device``); None is none of them."""
     if device is None:
         raise ValueError("device=None: pass 'cuda', 'cuda:N', 'cpu' or "
                          f"'{HOST}'")
@@ -365,6 +416,7 @@ def check_card(device) -> torch.device:
     torch.device; a CUDA device raises when no card is available."""
     if device is None:
         raise ValueError("device=None: pass 'cuda', 'cuda:N' or 'cpu'")
+    _load()
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
@@ -374,17 +426,19 @@ def check_card(device) -> torch.device:
     return device
 
 
-def use_device(device) -> torch.device:
+def use_device(device):
     """Check and select the device of this process's batches
-    (``"cuda"``, ``"cuda:N"`` or ``"cpu"``).  ``cuda`` raises when no
-    CUDA device is available, unless the batches go to the service,
-    which owns the device: this process then never touches CUDA, and
-    the service's device must be of the same type.  Batches that run
-    here on the CPU (the plain versions: row-serial loops of small
-    tensor ops) take one intra-op thread: with the host's other cores
-    busy (test workers, a batch's jobs, a CPU service's clients), a
-    pool of threads waiting on one another at every small op made the
-    plain NW of 788's widest launch many times slower than one thread."""
+    (``"cuda"``, ``"cuda:N"`` or ``"cpu"``) and return it as a
+    torch.device.  ``cuda`` raises when no CUDA device is available,
+    unless the batches go to the service, which owns the device: this
+    process then never touches CUDA nor loads torch, returns the device
+    as a ``DeviceName``, and the service's must be of the same type.
+    Batches that run here on the CPU (the plain versions: row-serial
+    loops of small tensor ops) take one intra-op thread: with the
+    host's other cores busy (test workers, a batch's jobs, a CPU
+    service's clients), a pool of threads waiting on one another at
+    every small op made the plain NW of 788's widest launch many times
+    slower than one thread."""
     if is_host(device):
         raise ValueError(f"device={HOST!r} has no device batches")
     if service_socket() is None:
@@ -392,7 +446,7 @@ def use_device(device) -> torch.device:
         if device.type == "cpu":
             torch.set_num_threads(1)
     else:
-        device = torch.device(device)
+        device = DeviceName.of(device)
         _check_served(service_device(), device)
     set_device(device)
     return device
@@ -412,7 +466,7 @@ def use_device(device) -> torch.device:
 
 SERVICE_ENV = "PINTRON_TORCH_SERVICE"
 AUTHKEY = b"pintron-torch-devservice"
-_SERVICE = None   # (socket path, Connection, the service's torch.device)
+_SERVICE = None   # (socket path, Connection, the service's DeviceName)
 _SERVICE_LOCK = threading.Lock()   # one request in flight per connection
 
 
@@ -456,7 +510,7 @@ def _service_conn():
     if _SERVICE is None or _SERVICE[0] != addr:
         conn, served = device_call(
             _dial, addr, what=f"device service handshake at {addr}")
-        _SERVICE = (addr, conn, torch.device(served))
+        _SERVICE = (addr, conn, DeviceName.of(served))
     return _SERVICE[1], _SERVICE[2]
 
 
@@ -469,7 +523,7 @@ def service_device():
         return _service_conn()[1]
 
 
-def _check_served(served: torch.device, device: torch.device) -> None:
+def _check_served(served: DeviceName, device) -> None:
     if served.type != device.type:
         raise RuntimeError(f"device service at {service_socket()} runs on "
                            f"{served}, not on the {device} asked for")
@@ -483,7 +537,7 @@ def problem_count(op: str, payload) -> int:
     return len(payload) if hasattr(payload, "__len__") else 0
 
 
-def service_eval(op: str, payload, device: torch.device):
+def service_eval(op: str, payload, device):
     """Round-trip one batch through the service.  Returns its result,
     or None when no service is set; raises the service's error, and
     raises when the service's device is not of ``device``'s type."""
@@ -542,7 +596,7 @@ def device_call(fn, *args, what: str = "device batch"):
     return box.get("ok")
 
 
-def _device() -> torch.device:
+def _device() -> DeviceName:
     if _DEVICE is None:
         raise RuntimeError("offload.set_device() was not called")
     return _DEVICE
@@ -583,6 +637,7 @@ def _sharded_call(mesh, fn, arrays):
     order on the mesh's first device.  A mesh of one shard is the plain
     call; each call over more adds one to ``STATS["mesh_batches"]``."""
     from pintron_tpu_torch.parallel.mesh import map_shards
+    _load()
     if len(mesh.devices) > 1:
         tally(mesh_batches=1)
     outs = map_shards(mesh, lambda _dev, *chunk: (fn(*chunk),),
@@ -602,7 +657,7 @@ def _full_matrix(n: int, ub: int) -> bool:
 
 
 def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
-                       device: torch.device) -> np.ndarray:
+                       device) -> np.ndarray:
     """Evaluate a batch of (gen_window, est_window, max_err) K-band
     problems on ``device``.  Returns int64 ok flags with ep_kband's
     exact semantics (dp.c:3862-3878)."""
@@ -636,6 +691,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
         tally(batches=1)
         ok[[i for i, _a, _b, _ub in rest]] = r
         return ok
+    device = _local(device)
 
     full_groups = {}
     band_groups = {}
@@ -716,6 +772,7 @@ def scratch_bytes(family: str, N: int, M: int) -> int:
     """The kernel scratch of one problem in an (N, M) bucket: what
     ``traceback.nw_scratch`` or ``gap_scratch`` (at ``gap_rows(N)``)
     allocates for a batch of one; both grow linearly in the batch."""
+    _load()
     if family == "nw":
         bufs = nw_scratch(1, N, M, "meta")
     else:
@@ -742,7 +799,7 @@ def launch_budget(device) -> int:
     """Bytes of kernel scratch one traceback launch on ``device`` may
     take; raises when it cannot hold one problem of the widest
     bucket."""
-    device = torch.device(device)
+    device = _local(device)
     if device.type == "cpu":
         return CPU_LAUNCH_BUDGET
     key = (device.type, device.index)
@@ -813,8 +870,7 @@ def eval_nw(problems: List[Tuple[bytes, bytes]]):
                        what="endpoint NW device batch")
 
 
-def _eval_nw_device(problems: List[Tuple[bytes, bytes]],
-                    device: torch.device):
+def _eval_nw_device(problems: List[Tuple[bytes, bytes]], device):
     evaluated = np.array([traceback_fits(e, g) for e, g in problems],
                          dtype=bool)
     L = max((len(e) + len(g) for e, g in problems), default=1)
@@ -835,6 +891,7 @@ def _eval_nw_device(problems: List[Tuple[bytes, bytes]],
     if r is not None:
         tally(batches=1)
         return r
+    device = _local(device)
     for rows, (_score, ops, nsteps) in _traceback_batches(
             problems, on_card, device, batch_nw_traceback_cuda, "nw"):
         w = min(L, ops.shape[1])
@@ -858,8 +915,7 @@ def eval_gap(problems: List[Tuple[bytes, bytes]]):
                        what="gap-align device batch")
 
 
-def _eval_gap_device(problems: List[Tuple[bytes, bytes]],
-                     device: torch.device):
+def _eval_gap_device(problems: List[Tuple[bytes, bytes]], device):
     evaluated = np.array([traceback_fits(e, g) for e, g in problems],
                          dtype=bool)
     L = max((len(e) + len(g) for e, g in problems), default=1)
@@ -875,6 +931,7 @@ def _eval_gap_device(problems: List[Tuple[bytes, bytes]],
     if r is not None:
         tally(batches=1)
         return r
+    device = _local(device)
     for rows, (sm, ops, nsteps) in _traceback_batches(
             problems, evaluated, device, batch_gap_traceback_cuda, "gap"):
         w = min(L, ops.shape[1])
@@ -899,8 +956,7 @@ def eval_rb(problems: List[Tuple[bytes, bytes]]):
                        what="refine-borders device batch")
 
 
-def _eval_rb_device(problems: List[Tuple[bytes, bytes]],
-                    device: torch.device):
+def _eval_rb_device(problems: List[Tuple[bytes, bytes]], device):
     evaluated = np.array([len(t) <= MAX_WIDTH for t, _p in problems],
                          dtype=bool)
     stride = max((len(p) for _, p in problems), default=0) + 1
@@ -916,6 +972,7 @@ def _eval_rb_device(problems: List[Tuple[bytes, bytes]],
     if r is not None:
         tally(batches=1)
         return r
+    device = _local(device)
     pending = []
     with timing.span("pintron_rowmin"):
         for (N, M), rows in _buckets(problems, evaluated):
@@ -949,7 +1006,7 @@ def eval_edit_batch(pairs: List[Tuple[bytes, bytes]]):
 
 
 def _eval_edit_batch_device(pairs: List[Tuple[bytes, bytes]],
-                            device: torch.device) -> np.ndarray:
+                            device) -> np.ndarray:
     out = np.zeros(len(pairs), dtype=np.int64)
     rest = []
     for i, (a, b) in enumerate(pairs):
@@ -969,6 +1026,7 @@ def _eval_edit_batch_device(pairs: List[Tuple[bytes, bytes]],
         tally(batches=1)
         out[[i for i, _a, _b in rest]] = r
         return out
+    device = _local(device)
 
     groups = {}
     for i, a, b in rest:
@@ -1000,7 +1058,7 @@ def pwm_scores_batched(rows: np.ndarray, wpwm: np.ndarray, den: float):
 
 
 def _pwm_scores_device(rows: np.ndarray, wpwm: np.ndarray, den: float,
-                       device: torch.device) -> np.ndarray:
+                       device) -> np.ndarray:
     rows = np.ascontiguousarray(rows, dtype=np.int8)
     wpwm = np.ascontiguousarray(wpwm, dtype=np.float32)
     tally(pwm_windows=rows.shape[0])
@@ -1008,6 +1066,7 @@ def _pwm_scores_device(rows: np.ndarray, wpwm: np.ndarray, den: float,
     if r is not None:
         tally(batches=1)
         return r
+    device = _local(device)
     with timing.span("pintron_pwm"):
         scores = pwm_scores_cuda(torch.from_numpy(rows).to(device),
                                  torch.from_numpy(wpwm).to(device),

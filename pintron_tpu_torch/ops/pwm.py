@@ -20,43 +20,17 @@ adds nothing, as its all-zero one-hot row does in the JAX op.
     adds in the same order, so the two are bit-equal.
 
 The host helpers (``pwm_tables``, ``encode_windows``, ``_BASE``) are
-copies of the JAX module's.
+copies of the JAX module's, kept in ``factorize/pwm_data.py`` beside
+the tables so that STEP 4's host side reads them without torch.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from pintron_tpu_torch.factorize.pwm_data import CV, MAXV, PWM
+from pintron_tpu_torch.factorize.pwm_data import (  # noqa: F401 - this
+    _BASE, encode_windows, pwm_tables)             # module's names too
 from pintron_tpu_torch.ops.kband import _count, _cuda_launch_context
-
-_BASE = np.full(256, -1, dtype=np.int32)
-for _i, _chars in enumerate(["Aa", "Cc", "Gg", "Tt"]):
-    for _ch in _chars:
-        _BASE[ord(_ch)] = _i
-_BASE[ord("N")] = 0
-_BASE[ord("n")] = 0
-
-
-def pwm_tables(name: str):
-    """Return (weighted_pwm (4, L) float32, denominator) for a matrix
-    name."""
-    pwm = np.asarray(PWM[name], dtype=np.float32)
-    cv = np.asarray(CV[name], dtype=np.float32)
-    maxv = np.asarray(MAXV[name], dtype=np.float32)
-    return pwm * cv[None, :], float(np.dot(cv, maxv))
-
-
-def encode_windows(windows, L: int) -> np.ndarray:
-    """Strings -> (B, L) int8 base codes; a base other than ACGTN maps
-    to 3, as in the JAX module."""
-    out = np.zeros((len(windows), L), dtype=np.int8)
-    for i, w in enumerate(windows):
-        b = np.frombuffer(w[:L].encode("latin1"), dtype=np.uint8)
-        idx = _BASE[b]
-        out[i, :len(b)] = np.where(idx >= 0, idx, 3)
-    return out
 
 
 def pwm_scores(base_idx: torch.Tensor, weighted_pwm: torch.Tensor,

@@ -12,7 +12,8 @@ Same arguments and results as the plain versions in
     There is no fallback from a failed build or launch to the plain
     version.
 
-Launches are counted in ``pintron_tpu_torch.ops.kband.LAUNCHES``.
+Launches are counted in ``pintron_tpu_torch.ops.kband.LAUNCHES``; the
+widest row the kernels take, ``MAX_WIDTH``, is ``ops/limits.py``'s.
 """
 
 from __future__ import annotations
@@ -23,12 +24,7 @@ from pintron_tpu_torch.ops import align
 from pintron_tpu_torch.ops.kband import (_check_batch, _count,
                                          _cuda_launch_context,
                                          launch_edit_rows)
-
-# the widest DP row (text window, gen window) the rowmin, nw and gap
-# kernels are given: the offload leaves wider problems to the host DPs
-# (its evaluated masks), as the JAX flow does, so that the two flows
-# count the same device problems
-MAX_WIDTH = 16384
+from pintron_tpu_torch.ops.limits import MAX_WIDTH
 
 
 def _check_width(name: str, width: int) -> None:

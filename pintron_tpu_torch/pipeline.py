@@ -21,16 +21,18 @@ mode; STEP 3's guarded child comes from the guard server
 (``guard.py``), started at a process's first pipeline call.  With
 ``PINTRON_TORCH_SERVICE`` set (``batch.py`` sets it), the device
 batches of STEPs 2 and 4 go to the device service instead, and this
-process never touches CUDA.
+process never touches CUDA nor loads torch.
 
 ``PINTRON_TORCH_PROFILE=<dir>`` writes a ``torch.profiler`` trace of
 the whole pipeline there (``pintron-<pid>.json``), and the spans the
 recorder kept (``runtime/timing.py``; STEP 3's child's and STEP 2's
-fork workers' included) beside it as ``spans-<pid>.jsonl``.  A locus is
+fork workers' included) beside it as ``spans-<pid>.jsonl``; a service
+client, whose trace would hold only those spans' host events, writes
+the spans alone and so still never loads torch.  A locus is
 one ``pintron_locus`` span (attrs: gene, records) over ``pintron_step1``
 ... ``pintron_step8``, ``pintron_gtf`` and ``pintron_cleanup``; a
 process's first locus is preceded by ``pintron_startup`` (attrs:
-package_s, pid), from the process's start to the locus's; a forked
+package_s, pid, torch), from the process's start to the locus's; a forked
 stage's child opens ``pintron_step<n>_child``; the device batches carry
 the spans ``pintron_kband_full``, ``pintron_kband_band``,
 ``pintron_nw``, ``pintron_gap``, ``pintron_rowmin``, ``pintron_edit``
@@ -52,17 +54,21 @@ import shutil
 import sys
 import time
 
-import torch
-
 from pintron_tpu_torch import guard
 from pintron_tpu_torch.runtime import timing
 
 
-def _start_profiler():
+def _start_profiler(client: bool):
+    """With ``PINTRON_TORCH_PROFILE`` set: recording on, and a
+    torch.profiler started unless this process is a service ``client``;
+    returns (the profiler or None, the directory or None)."""
     prof_dir = os.environ.get(timing.PROFILE_ENV)
     if not prof_dir:
         return None, None
     timing.trace_on()
+    if client:
+        return None, prof_dir
+    import torch
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -180,10 +186,8 @@ def pintron_pipeline(workdir: str = ".",
         (``served``), and the guard server forks it, a small process
         started by exec at this process's first pipeline call that
         never imports torch, so a locus no longer pays a fork of this
-        process, which maps torch and the CUDA context.  ``--device
-        host``'s STEPs 2 and 4 keep a fork of this process: their
-        modules import torch at the top, and a torch import in each
-        child would cost more than the fork it saves.  With a torch
+        process, which may map torch and the CUDA context.  ``--device
+        host``'s STEPs 2 and 4 keep a fork of this process.  With a torch
         device those two stages (device_stage=True) run inline, as a
         CUDA context cannot be used in a forked child, relying on the
         per-EST timeout ladder instead.  Spans: ``pintron_fork``
@@ -208,7 +212,8 @@ def pintron_pipeline(workdir: str = ".",
     guard.start()
     # PINTRON_TORCH_PROFILE=<dir>: a torch.profiler trace of the whole
     # pipeline, and the recorder's spans beside it
-    prof, prof_dir = _start_profiler()
+    prof, prof_dir = _start_profiler(
+        not host and offload.service_socket() is not None)
     with timing.timed_span("pintron_locus", gene=gene) as locus:
         # a process's first locus: its start-up, process start to here
         timing.startup(locus.start)
@@ -352,15 +357,16 @@ def pintron_pipeline(workdir: str = ".",
                         except OSError:
                             pass
 
-    if prof is not None:
-        prof.stop()
+    if prof_dir is not None:
         os.makedirs(prof_dir, exist_ok=True)
-        trace = os.path.join(prof_dir, f"pintron-{os.getpid()}.json")
-        prof.export_chrome_trace(trace)
+        if prof is not None:
+            prof.stop()
+            trace = os.path.join(prof_dir, f"pintron-{os.getpid()}.json")
+            prof.export_chrome_trace(trace)
+            log.info("torch profiler trace written to %s", trace)
         spans = timing.write_spans(prof_dir, timing.trace_take())
         timing.trace_off()
-        log.info("torch profiler trace written to %s, spans to %s", trace,
-                 spans)
+        log.info("spans written to %s", spans)
     log.info("Pipeline completed in %.1fs", time.time() - t0)
 
 

@@ -11,8 +11,9 @@ Rebuild of the reference's observability layer:
 * the card's name and power limit, written beside every device time
   (``card_line``);
 * the span recorder (``span``, ``trace_on`` ... ``trace_take``): the
-  port's named stretches of work for torch.profiler, and kept in memory
-  with their parents, processes and threads while recording is on;
+  port's named stretches of work for torch.profiler where torch is
+  loaded, and kept in memory with their parents, processes and threads
+  while recording is on, torch or not;
 * a process's start-up (``startup``): from the process's start to its
   first locus, the span ``pintron_startup``.
 """
@@ -26,11 +27,10 @@ import logging
 import os
 import resource
 import subprocess
+import sys
 import threading
 import time
 from typing import Dict, List, NamedTuple, Optional
-
-from torch.autograd.profiler import record_function
 
 from pintron_tpu_torch import IMPORT_START
 
@@ -131,9 +131,13 @@ def card_line() -> str:
 
 
 # ---- the span recorder -----------------------------------------------------
-# ``span(name, **attrs)`` names a stretch of the port's work.  It always
-# enters torch.profiler's ``record_function(name)``, so a CUPTI trace
-# (``PINTRON_TORCH_PROFILE``, the benchmark's traced runs) shows it.
+# ``span(name, **attrs)`` names a stretch of the port's work.  Where
+# torch is loaded it enters torch.profiler's ``record_function(name)``,
+# so a CUPTI trace (``PINTRON_TORCH_PROFILE``, the benchmark's traced
+# runs) shows it; it never loads torch itself, so that a service client,
+# which needs none, starts without it, and wherever a profiler runs
+# torch is loaded.  Whether torch is loaded is looked up at each span's
+# entry.
 # While recording is on (``trace_on``) it is also kept in this process's
 # memory as a ``Span``: times on time.monotonic(), whose CLOCK_MONOTONIC
 # is one clock for every process of the machine (the benchmark lays the
@@ -143,7 +147,8 @@ def card_line() -> str:
 # runs: ``trace_take`` hands the kept spans over.  A forked child starts
 # with none kept and the open stack it inherited, and sends its own back
 # for the parent's ``trace_add``.  With recording off a span costs one
-# test of the flag beyond its record_function.
+# test of the flag beyond its record_function, or one dict lookup
+# without torch.
 
 PROFILE_ENV = "PINTRON_TORCH_PROFILE"
 
@@ -196,15 +201,19 @@ def _new_id() -> int:
     return (_PID << 32) | next(_IDS)
 
 
-class span(record_function):
+_PROFILER = "torch.autograd.profiler"   # loaded with torch
+
+
+class span:
     """``with span(name, **attrs):`` or ``@span(name, **attrs)`` (a
     fresh span each call).  ``attrs`` are kept with the span; ``note``
     adds to the innermost open one."""
 
     _rec = None   # the kept span's list while it is recorded
+    _rf = None    # torch.profiler's record_function, where torch is loaded
 
     def __init__(self, name: str, **attrs):
-        super().__init__(name)
+        self.name = name
         self.attrs = attrs
 
     @property
@@ -238,16 +247,27 @@ class span(record_function):
             st.remove(self)
         _KEPT.append(self._rec)
 
+    def _profile_enter(self) -> None:
+        profiler = sys.modules.get(_PROFILER)
+        if profiler is not None:
+            self._rf = profiler.record_function(self.name)
+            self._rf.__enter__()
+
+    def _profile_exit(self, exc) -> None:
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+
     # the clock is read outside the record_function, so that a span
     # holds its own instrumentation, as its parent does
     def __enter__(self):
         if _RECORDING:
             self._open()
-        return super().__enter__()
+        self._profile_enter()
+        return self
 
     def __exit__(self, *exc):
         try:
-            return super().__exit__(*exc)
+            self._profile_exit(exc)
         finally:
             if self._rec is not None:
                 self._close()
@@ -263,11 +283,12 @@ class timed_span(span):
             self.start = self._rec[1]
         else:
             self.start = time.monotonic()
-        return record_function.__enter__(self)
+        self._profile_enter()
+        return self
 
     def __exit__(self, *exc):
         try:
-            return record_function.__exit__(self, *exc)
+            self._profile_exit(exc)
         finally:
             if self._rec is not None:
                 self._close()
@@ -362,12 +383,12 @@ def write_spans(directory: str, spans) -> str:
 # ``t``: the process's start-up runs from its start (the OS's record of
 # it, else the package's import) to ``t``.  With recording on at that
 # call it is kept as the span ``pintron_startup`` (attrs: ``package_s``,
-# the package's import with its torch, timed from the package's first
-# line until this module, which holds torch, is loaded; ``pid``).  Only
-# the first call keeps anything, recording on or off, and a forked child
-# never does.
+# from the package's first line until this module is loaded; ``pid``;
+# ``torch``, whether torch was loaded as the locus opened: a service
+# client's process never loads it).  Only the first call keeps anything,
+# recording on or off, and a forked child never does.
 
-_IMPORTED = time.monotonic()   # torch and this module loaded
+_IMPORTED = time.monotonic()   # this module loaded
 _STARTED = False               # a locus opened here, or this is a fork
 _STARTUP: Optional[tuple] = None   # (start, end) once it did
 
@@ -398,7 +419,7 @@ def startup(end: float) -> None:
     _STARTED = True
     _STARTUP = (_process_start(), end)
     record("pintron_startup", *_STARTUP, package_s=_IMPORTED - IMPORT_START,
-           pid=_PID)
+           pid=_PID, torch="torch" in sys.modules)
 
 
 def startup_seconds() -> Optional[float]:

@@ -61,7 +61,6 @@ import time
 from typing import List, Optional, TextIO, Tuple
 
 import numpy as np
-import torch
 
 from pintron_tpu_torch.config import Config
 from pintron_tpu_torch.factorize import filters as flt
@@ -80,7 +79,7 @@ from pintron_tpu_torch.meg import graph as megmod
 from pintron_tpu_torch.meg import simplify as simp
 from pintron_tpu_torch.meg.graph import MEG
 from pintron_tpu_torch.native import dp_census, dp_census_reset, get_lib
-from pintron_tpu_torch.ops import kband, offload
+from pintron_tpu_torch.ops import limits, offload
 from pintron_tpu_torch.runtime import timing
 
 
@@ -2078,7 +2077,7 @@ def _run_host(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
 
 def _run_device(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
                 ests_path: str, nworkers: int, fresh: bool,
-                device: torch.device, routes: dict):
+                device: "torch.device", routes: dict):
     """The device flow, in this process or sharded over fork workers
     through the service; logs the ``est-fact device flow:`` line, with
     each family's route and the tuner's latches after the run."""
@@ -2109,7 +2108,7 @@ def _run_device(gen: mf.EstInfo, gen_seq_bytes: bytes, config: Config,
              "workers": nworkers if sharded else 1,
              # with a service, the service's own environment decides
              "mesh": None if offload.service_socket() else offload.mesh_size(),
-             "stats": offload.STATS, "launches": kband.LAUNCHES,
+             "stats": offload.STATS, "launches": limits.LAUNCHES,
              "host_dp_cells": host_cells,
              "routes": routes, "latches": offload.latches(),
              "device_cell_share": dev_cells / total if total else 0.0},

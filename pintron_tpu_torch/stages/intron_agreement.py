@@ -44,7 +44,7 @@ from pintron_tpu_torch.factorize.seq_util import real_substring
 from pintron_tpu_torch.factorize.types import Factor
 from pintron_tpu_torch.io import multifasta as mf
 from pintron_tpu_torch.io.multifasta import _atoi
-from pintron_tpu_torch.ops import kband, offload
+from pintron_tpu_torch.ops import limits, offload
 from pintron_tpu_torch.stages.est_fact import (FactorizedEst,
                                                write_multifasta_output)
 from pintron_tpu_torch.stages.min_factorization import (EstFactorizations,
@@ -644,14 +644,14 @@ def run_intron_agreement(workdir: str = ".", device="cuda") -> None:
         return
     device = offload.use_device(device)
     stats0 = dict(offload.STATS)
-    launches0 = dict(kband.LAUNCHES)
+    launches0 = dict(limits.LAUNCHES)
     _run(workdir, device)
     logging.getLogger("pintron").info(
         "intron-agreement device flow: %s", json.dumps(
             {"device": str(offload.service_device() or device),
              "service": offload.service_socket(),
              "stats": {k: offload.STATS[k] - stats0[k] for k in stats0},
-             "launches": {k: kband.LAUNCHES[k] - launches0[k]
+             "launches": {k: limits.LAUNCHES[k] - launches0[k]
                           for k in launches0}},
             sort_keys=True))
 

@@ -67,6 +67,27 @@ def test_port_imports_no_module_of_the_jax_package():
     assert [m for m in loaded if _jax_package(m)] == []
 
 
+def test_a_service_clients_modules_import_no_torch():
+    """A fresh interpreter that imports what a service client runs (the
+    batch driver, the pipeline, every STEP, the offload, the recorder)
+    loads no torch: a job of ``batch.py`` starts with the interpreter,
+    numpy and the port."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import pintron_tpu_torch.stages as stages\n"
+            "for m in ('batch', 'pipeline', 'ops.offload', "
+            "'runtime.timing'):\n"
+            "    importlib.import_module('pintron_tpu_torch.' + m)\n"
+            "for info in pkgutil.iter_modules(stages.__path__):\n"
+            "    importlib.import_module('pintron_tpu_torch.stages.' "
+            "+ info.name)\n"
+            "assert 'pintron_tpu_torch.stages.est_fact' in sys.modules\n"
+            "print(sorted(m for m in sys.modules if m == 'torch' or "
+            "m.startswith('torch.')))\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 def test_port_sources_name_no_jax():
     """No import statement of the port or of chip_smoke.py names JAX or
     the JAX package's ``ops`` (which imports JAX); a file path of a

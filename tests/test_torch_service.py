@@ -2,10 +2,11 @@
 CPU: round trips equal to the local entries for all six ops, the
 ``evaluated`` masks sliced per client, errors raised in the client (no
 host fallback), STEP 2 sharded over fork workers through the service,
-and the batch driver with ``--device cpu``: two loci, and a manifest of
-three at its defaults (a job a locus, one EST worker each, each job's
-start-up in its line and its spans).  Inputs are made from a seed with
-numpy; the loci come from ``tests/golden/``."""
+a locus served to a fresh interpreter that never loads torch, and the
+batch driver with ``--device cpu``: two loci, and a manifest of three at
+its defaults (a job a locus, one EST worker each, each job's start-up in
+its line and its spans, and no torch in it).  Inputs are made from a
+seed with numpy; the loci come from ``tests/golden/``."""
 
 import json
 import os
@@ -252,9 +253,11 @@ def test_clients_dialling_at_once_all_connect(service, local):
 def test_cuda_client_on_a_cpu_service_raises(service, local, monkeypatch):
     """A client checks the service's device on connecting: a cuda run
     never lands on a cpu service, whether it selects its device or
-    sends a batch."""
+    sends a batch.  The client holds the service's device by name, no
+    torch.device, reading as torch's does."""
     monkeypatch.setenv(offload.SERVICE_ENV, service)
-    assert offload.service_device() == torch.device("cpu")
+    assert offload.service_device() == offload.DeviceName("cpu")
+    assert str(offload.service_device()) == str(torch.device("cpu"))
     with pytest.raises(RuntimeError, match="runs on cpu"):
         offload.use_device("cuda")
     monkeypatch.setattr(offload, "_DEVICE", torch.device("cuda"))
@@ -315,6 +318,63 @@ def test_step2_sharded_through_the_service(service, golden, tmp_path,
     assert {k: sharded[k] for k in COUNTS} == \
         {k: offload.STATS[k] for k in COUNTS}
     assert min(sharded[k] for k in COUNTS) > 0
+
+
+_SERVED_LOCUS = """
+import json, logging, sys
+from pintron_tpu_torch import pipeline
+from pintron_tpu_torch.runtime import timing
+PREFIX = "est-fact device flow: "
+flows = []
+class Flows(logging.Handler):
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith(PREFIX):
+            flows.append(json.loads(msg[len(PREFIX):]))
+log = logging.getLogger("pintron")
+log.addHandler(Flows())
+log.setLevel(logging.INFO)
+timing.trace_on()
+pipeline.pintron_pipeline(workdir=sys.argv[1], output_filename="full.json",
+                          gtf_filename="pintron-all-isoforms.gtf",
+                          gene="AMBN", organism="human",
+                          keep_intermediate=True, device="cpu")
+(startup,) = [s for s in timing.trace_take() if s.name == "pintron_startup"]
+print(json.dumps({"flows": flows, "startup_torch": startup.attrs["torch"],
+                  "torch": sorted(m for m in sys.modules if m == "torch"
+                                  or m.startswith("torch."))}))
+"""
+
+
+def test_a_served_locus_runs_without_torch(service, golden, tmp_path):
+    """AMBN's pipeline in a fresh interpreter whose batches go to the
+    CPU service: its STEP 2-4 artifacts and finals equal the goldens,
+    its flow line names the service's device and counts no launch of
+    its own, and torch was never loaded, neither as its locus opened
+    (``pintron_startup``'s ``torch``) nor at its end."""
+    if get_lib() is None:
+        pytest.skip("native library unavailable")
+    gold = golden("test-AMBN")
+    work = _workdir(gold, tmp_path / "served")
+    env = _env()
+    env[offload.SERVICE_ENV] = service
+    r = subprocess.run([sys.executable, "-c", _SERVED_LOCUS, str(work)],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    for name in STEP_ARTIFACTS:
+        assert (work / name).read_bytes() == (gold / name).read_bytes(), \
+            name
+    for name in ("full.json", "pintron-all-isoforms.gtf"):
+        assert (work / name).read_bytes() == (gold / name).read_bytes(), \
+            name
+    (flow,) = out["flows"]
+    assert flow["device"] == "cpu" and flow["service"] == service
+    assert flow["stats"]["device_problems"] > 0
+    assert set(flow["launches"].values()) == {0}
+    assert out["startup_torch"] is False
+    assert out["torch"] == []
 
 
 def test_batch_driver_on_the_cpu_service(golden, tmp_path):
@@ -393,8 +453,9 @@ def test_batch_manifest_at_its_defaults_matches_the_goldens(
         manifest_run, golden, case, gene, records):
     """Each job of a three-locus manifest, three at once: its STEP 2-4
     artifacts and finals equal the goldens, its line carries its
-    start-up, and its spans hold one ``pintron_startup``, ending where
-    its locus starts."""
+    start-up and that it never loaded torch, and its spans hold one
+    ``pintron_startup``, ending where its locus starts, opened without
+    torch."""
     root, lines, spans = manifest_run
     assert lines[-1]["ok"] == len(MANIFEST) and lines[-1]["failed"] == 0
     gold, work = golden(case), root / case
@@ -408,6 +469,8 @@ def test_batch_manifest_at_its_defaults_matches_the_goldens(
     (line,) = [ln for ln in lines[:-1] if ln["workdir"] == str(work)]
     assert line["ok"] and line["gene"] == gene
     assert line["startup_s"] > 0
+    # a job is a client of the service: it never loads torch
+    assert line["torch_loaded"] is False
     # the job's span file: the one whose locus has this locus's records
     (mine,) = [f for f in spans if any(
         s["name"] == "pintron_locus" and s["attrs"]["records"] == records
@@ -416,5 +479,6 @@ def test_batch_manifest_at_its_defaults_matches_the_goldens(
     (locus,) = [s for s in mine if s["name"] == "pintron_locus"]
     assert startup["start"] < startup["end"] == locus["start"]
     assert startup["attrs"]["pid"] == startup["pid"] == locus["pid"]
+    assert startup["attrs"]["torch"] is False
     assert line["startup_s"] == pytest.approx(
         startup["end"] - startup["start"], abs=2e-3)

@@ -5,10 +5,11 @@ cover, STEP 2's phases under STEP 2, STEP 3's forked child from its own
 pid inside STEP 3, and ``PINTRON_TORCH_PROFILE``'s span file; STEP 2
 sharded over 2 fork workers through a CPU device service that records
 (each worker's spans sent back, every request's arrival before its
-evaluation); a decorated span still named in a ``torch.profiler``
-trace; the recorder's parents across threads and forks; a process's
-start-up, ``pintron_startup``, kept at its first locus alone and never
-in a forked child."""
+evaluation); spans named in a ``torch.profiler`` trace with their
+parents where torch is loaded, and kept by the recorder in a process
+that never loads it; the recorder's parents across threads and forks; a
+process's start-up, ``pintron_startup``, kept at its first locus alone
+and never in a forked child."""
 
 import glob
 import json
@@ -315,6 +316,9 @@ def test_service_requests_arrive_before_their_evaluation(sharded):
 # ---- the recorder itself ------------------------------------------------------
 
 def test_a_decorated_span_shows_in_a_torch_profiler_trace():
+    """With torch loaded, a span is a host event of a running profiler
+    under its own name: a decorated one each call, and one opened with
+    ``with`` the parent of the spans inside it, over their interval."""
     @timing.span("pintron_test_decorated")
     def work(x):
         return x + 1
@@ -322,10 +326,63 @@ def test_a_decorated_span_shows_in_a_torch_profiler_trace():
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         assert work(torch.ones(3)).sum().item() == 6
-        assert work(torch.ones(3)).sum().item() == 6
-    names = [e.name for e in prof.events()]
+        with timing.timed_span("pintron_test_outer"):
+            assert work(torch.ones(3)).sum().item() == 6
+    events = prof.events()
+    names = [e.name for e in events]
     assert names.count("pintron_test_decorated") == 2
+    (outer,) = [e for e in events if e.name == "pintron_test_outer"]
+    inner = [e for e in events if e.name == "pintron_test_decorated"
+             and e.cpu_parent is not None]
+    assert [e.cpu_parent.name for e in inner] == ["pintron_test_outer"]
+    assert outer.time_range.start <= inner[0].time_range.start \
+        <= inner[0].time_range.end <= outer.time_range.end
     assert timing.trace_take() == []
+
+
+_RECORD_WITHOUT_TORCH = """
+import json, sys
+from pintron_tpu_torch.runtime import timing
+timing.trace_on()
+with timing.span("outer", k=1) as outer:
+    with timing.timed_span("middle"):
+        @timing.span("inner", j=2)
+        def work():
+            timing.note(x=3)
+        work()
+timing.record("recorded", 0.0, 1.0, parent=outer.id, r=4)
+timing.trace_off()
+spans = [s._asdict() for s in timing.trace_take()]
+print(json.dumps({"spans": spans, "torch": sorted(
+    m for m in sys.modules if m == "torch" or m.startswith("torch."))}))
+"""
+
+
+def test_the_recorder_keeps_spans_without_torch():
+    """In a fresh interpreter that never loads torch, the recorder keeps
+    nested spans (``with``, timed, decorated, recorded) with their
+    parents, attributes and intervals, as it does with torch."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", _RECORD_WITHOUT_TORCH],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["torch"] == []
+    spans = {s["name"]: s for s in out["spans"]}
+    assert sorted(spans) == ["inner", "middle", "outer", "recorded"]
+    outer, middle, inner = spans["outer"], spans["middle"], spans["inner"]
+    assert outer["parent"] is None
+    assert middle["parent"] == outer["id"]
+    assert inner["parent"] == middle["id"]
+    assert spans["recorded"]["parent"] == outer["id"]
+    assert outer["attrs"] == {"k": 1} and middle["attrs"] == {}
+    assert inner["attrs"] == {"j": 2, "x": 3}
+    assert spans["recorded"]["attrs"] == {"r": 4}
+    assert outer["start"] <= middle["start"] <= inner["start"] \
+        <= inner["end"] <= middle["end"] <= outer["end"]
+    assert len({s["pid"] for s in out["spans"]}) == 1
 
 
 def test_an_unbound_thread_starts_its_own_tree():
