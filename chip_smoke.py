@@ -845,7 +845,7 @@ def check_family_mix(offload, probs):
 
 def phase_main_path(dev, gpu):
     from pintron_tpu_torch.native import dp_census, dp_census_reset, get_lib
-    from pintron_tpu_torch.ops import kband, offload
+    from pintron_tpu_torch.ops import limits, offload
     from pintron_tpu_torch.stages.est_fact import run_est_fact
 
     os.environ["PINTRON_FRESH_MEMO"] = "1"
@@ -865,23 +865,23 @@ def phase_main_path(dev, gpu):
         want_mix = [host_ep_kband_ok(lib, g, e, ub) for g, e, ub in mix]
 
         offload.set_device(dev)
-        kband.reset_launches()      # the main path's run starts here
+        limits.reset_launches()      # the main path's run starts here
         per_case = {}
         for case, (gold, work) in works.items():
             offload.reset_stats()
             dp_census_reset()
-            before = dict(kband.LAUNCHES)
+            before = dict(limits.LAUNCHES)
             t0 = time.perf_counter()
             run_est_fact(work, device=dev)
             dt = time.perf_counter() - t0
             per_case[case] = (dt, dict(offload.STATS), dp_census() or {},
-                              {k: kband.LAUNCHES[k] - before[k]
+                              {k: limits.LAUNCHES[k] - before[k]
                                for k in before})
-        launches = dict(kband.LAUNCHES)     # ... and ends here
-        kband.reset_launches()
+        launches = dict(limits.LAUNCHES)     # ... and ends here
+        limits.reset_launches()
         got_mix = offload.eval_kband(mix)
         check_family_mix(offload, pair_mix(np.random.default_rng(12)))
-        mix_launches = dict(kband.LAUNCHES)
+        mix_launches = dict(limits.LAUNCHES)
 
         if [int(v) for v in got_mix] != want_mix:
             raise AssertionError("eval_kband verdicts differ from ep_kband")
@@ -987,7 +987,7 @@ def compare_files(case, gold, work, names, work_names=None):
 def phase_stage4(dev, gpu):
     """STEP 4 through the port on the card, from the goldens' STEP 3
     outputs; returns the path's kernel launches."""
-    from pintron_tpu_torch.ops import kband, offload
+    from pintron_tpu_torch.ops import limits, offload
     from pintron_tpu_torch.stages.intron_agreement import \
         run_intron_agreement
     tmp = tempfile.mkdtemp(prefix="chip-smoke-s4-")
@@ -1001,18 +1001,18 @@ def phase_stage4(dev, gpu):
             for fn in STAGE4_INPUTS:
                 shutil.copy(os.path.join(gold, fn), work)
             works[case] = (gold, work)
-        kband.reset_launches()      # the STEP 4 path's run starts here
+        limits.reset_launches()      # the STEP 4 path's run starts here
         per_case = {}
         for case, (gold, work) in works.items():
             offload.reset_stats()
-            before = dict(kband.LAUNCHES)
+            before = dict(limits.LAUNCHES)
             t0 = time.perf_counter()
             run_intron_agreement(work, device=dev)
             dt = time.perf_counter() - t0
             per_case[case] = (dt, dict(offload.STATS),
-                              {k: kband.LAUNCHES[k] - before[k]
+                              {k: limits.LAUNCHES[k] - before[k]
                                for k in before})
-        launches = dict(kband.LAUNCHES)     # ... and ends here
+        launches = dict(limits.LAUNCHES)     # ... and ends here
         for case, (dt, stats, lc) in per_case.items():
             gold, work = works[case]
             compare_files(case, gold, work, STAGE4_FILES)
@@ -1182,13 +1182,13 @@ def phase_entry(dev, gpu, clock):
     step on the CPU; the step and each part timed.  Returns the entry
     path's launches."""
     from pintron_tpu_torch.graft_entry import entry
-    from pintron_tpu_torch.ops import kband, pwm
+    from pintron_tpu_torch.ops import kband, limits, pwm
     from pintron_tpu_torch.parallel import mesh
     fn, args = entry(dev)
-    kband.reset_launches()      # the entry path's run starts here
+    limits.reset_launches()      # the entry path's run starts here
     got = fn(*args)
     torch.cuda.synchronize()
-    launches = dict(kband.LAUNCHES)     # ... and ends here
+    launches = dict(limits.LAUNCHES)     # ... and ends here
     if launches["kband"] != 1 or launches["pwm"] != 1:
         raise AssertionError(f"entry(): launches {launches}, want one "
                              "kband_kernel and one pwm_kernel")
@@ -1367,7 +1367,7 @@ def phase_mesh(dev, gpu, clock):
     mesh path's launches: this process's and the two-process run's
     service's."""
     from pintron_tpu_torch.graft_entry import dryrun_multichip, entry
-    from pintron_tpu_torch.ops import kband
+    from pintron_tpu_torch.ops import limits
     from pintron_tpu_torch.parallel import mesh
     fn, args = entry(dev)
     edge, ekw = mesh.edge_batch()
@@ -1382,12 +1382,12 @@ def phase_mesh(dev, gpu, clock):
              for name, (_a, kw) in batches.items() for n in (1, 2, 8)}
     sharded_ms = check_sharded_kband(dev, gpu)
     torch.cuda.synchronize()
-    kband.reset_launches()      # the mesh path's run starts here
+    limits.reset_launches()      # the mesh path's run starts here
     got = {key: step(*batches[key[0]][0]) for key, step in steps.items()}
     torch.cuda.synchronize()
-    step_launches = dict(kband.LAUNCHES)
+    step_launches = dict(limits.LAUNCHES)
     dry = dryrun_multichip(8, dev)
-    launches = dict(kband.LAUNCHES)     # ... and ends here
+    launches = dict(limits.LAUNCHES)     # ... and ends here
     service = dry["multiprocess"]["service"]["launches"]
     for k in ("kband", "pwm"):
         if step_launches[k] != 2 * (1 + 2 + 8):
@@ -1537,10 +1537,10 @@ def phase_sweep(gpu, device="cuda"):
     against the golden (check_e2e.classify_case), never diff.  Returns
     the sweep path's launches: this process's and the batch's
     service's."""
-    from pintron_tpu_torch.ops import kband
+    from pintron_tpu_torch.ops import limits
     from pintron_tpu_torch.tools import check_batch_sweep, check_stage2
     t0 = time.perf_counter()
-    kband.reset_launches()      # the sweep path's run starts here
+    limits.reset_launches()      # the sweep path's run starts here
     loci = {}
     for case in SWEEP_CASES:
         res = check_stage2.check_case(case, device)
@@ -1563,7 +1563,7 @@ def phase_sweep(gpu, device="cuda"):
                           device_cells=res["stats"]["device_cells"])
     step2_s = time.perf_counter() - t0
     sw = check_batch_sweep.sweep(list(SWEEP_CASES), device)
-    launches = dict(kband.LAUNCHES)     # ... and ends here
+    launches = dict(limits.LAUNCHES)     # ... and ends here
     summary = sw["summary"]
     service = summary["service"]["launches"]
     print(f"batch sweep --device {device}: {summary['jobs']} loci in "
@@ -1606,7 +1606,7 @@ def phase_routes(gpu, device="cuda", cases=("test-TP53", "test-issue-13")):
     0 must launch its kernel no time and every other family as in the
     forced run.  Each run's ESTs/s, device share of the DP cells, launches
     and latches on a line.  Returns the phase's launches."""
-    from pintron_tpu_torch.ops import kband, offload
+    from pintron_tpu_torch.ops import limits, offload
     from pintron_tpu_torch.tools import check_stage2
     envs = [offload.family_env(f) for f in offload.FAMILIES]
     runs = ([("forced", {})]
@@ -1615,7 +1615,7 @@ def phase_routes(gpu, device="cuda", cases=("test-TP53", "test-issue-13")):
             + [("auto", dict.fromkeys(envs, "auto"))])
     t0 = time.perf_counter()
     table = {}
-    kband.reset_launches()      # the routes path's run starts here
+    limits.reset_launches()      # the routes path's run starts here
     try:
         for case in cases:
             offload.reset_tuner()
@@ -1664,7 +1664,7 @@ def phase_routes(gpu, device="cuda", cases=("test-TP53", "test-issue-13")):
         for var in envs:
             os.environ.pop(var, None)
         offload.reset_tuner()
-    launches = dict(kband.LAUNCHES)     # ... and ends here
+    launches = dict(limits.LAUNCHES)     # ... and ends here
     print(f"family routes: {len(table)} runs byte-identical, every family "
           f"at 0 "
           f"launched nothing, the others as forced; launches {launches}; "

@@ -17,8 +17,8 @@ native host path with no device batch).
 records: the device service, the in-process device path (its
 ``offload.check_card``, its first batch), ``PINTRON_TORCH_PROFILE``,
 the batch driver's own process (its card check), the kernel wrappers
-(``ops/{align,kband,traceback,pwm}.py``), ``parallel/``, the bench and
-the measuring tools.  A service client (``PINTRON_TORCH_SERVICE`` set,
+(``ops/{align,kband,traceback,pwm}.py``), ``parallel/`` and the
+measuring tools.  A service client (``PINTRON_TORCH_SERVICE`` set,
 as in every job of ``batch.py``) runs STEPs 1-8 without it, and so
 does ``device="host"``: the pipeline, the stages, ``ops/offload.py``
 and ``runtime/timing.py`` import none of it.

@@ -50,7 +50,7 @@ from multiprocessing.connection import Listener
 import numpy as np
 import torch
 
-from pintron_tpu_torch.ops import kband, offload
+from pintron_tpu_torch.ops import limits, offload
 from pintron_tpu_torch.runtime import timing
 
 STATS = {"requests": 0, "merged_batches": 0, "errors": 0,
@@ -178,7 +178,7 @@ def serve(socket_path: str, device, ready_file: str = None) -> None:
         if item[1][0] == "shutdown":
             _reply(item[0], ("ok", {"stats": dict(STATS),
                                     "offload": dict(offload.STATS),
-                                    "launches": dict(kband.LAUNCHES)}))
+                                    "launches": dict(limits.LAUNCHES)}))
             break
         # merge the requests already waiting; waiting 1 or 4 ms for
         # more measured no faster on the H100 (PERF.md)

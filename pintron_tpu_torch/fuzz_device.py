@@ -17,7 +17,7 @@ locus reaches.  The device run reports which ones: the offload's
 counters (``offload.STATS``; its ``kband_ub_max``, the widest budget
 the band kernel took, over 256 is ``kband_kernel``'s
 33-cells-a-lane instance), the kernel launches by kernel
-(``kband.LAUNCHES``; an ``edit_score`` launch in STEP 2 is the
+(``limits.LAUNCHES``; an ``edit_score`` launch in STEP 2 is the
 full-matrix K-band route; a ``cpu`` run launches nothing), and the
 host DP cells by family (``native.dp_census``; host ``gap_align``
 cells are gap lookaside misses).
@@ -50,11 +50,11 @@ N_ESTS = (30, 60, 120)
 _CHILD = """
 import json, sys
 from pintron_tpu_torch.native import dp_census
-from pintron_tpu_torch.ops import kband, offload
+from pintron_tpu_torch.ops import limits, offload
 from pintron_tpu_torch.stages.est_fact import run_est_fact
 workdir, device = sys.argv[1:]
 run_est_fact(workdir, device=device)
-print(json.dumps(dict(stats=offload.STATS, launches=kband.LAUNCHES,
+print(json.dumps(dict(stats=offload.STATS, launches=limits.LAUNCHES,
                       host_cells=dp_census() or {})))
 """
 

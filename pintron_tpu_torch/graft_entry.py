@@ -76,7 +76,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     card.  Returns a report: the mesh, STEP 2's wall over it, the
     K-band groups it sharded (``offload.STATS["mesh_batches"]``), its
     kernel launches and the two-process run's report."""
-    from pintron_tpu_torch.ops import kband, offload
+    from pintron_tpu_torch.ops import limits, offload
     from pintron_tpu_torch.parallel.multihost import \
         run_est_fact_multiprocess
     from pintron_tpu_torch.pipeline import pintron_pipeline
@@ -98,14 +98,14 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
 
         os.environ[offload.MESH_ENV] = str(n_devices)
         os.environ["PINTRON_FRESH_MEMO"] = "1"
-        before = dict(kband.LAUNCHES)
+        before = dict(limits.LAUNCHES)
         sharded0 = offload.STATS["mesh_batches"]
         t0 = time.perf_counter()
         run_est_fact(work, device=device)
         if device.type == "cuda":
             torch.cuda.synchronize()
         step2_s = time.perf_counter() - t0
-        launches = {k: v - before[k] for k, v in kband.LAUNCHES.items()}
+        launches = {k: v - before[k] for k, v in limits.LAUNCHES.items()}
         mesh_batches = offload.STATS["mesh_batches"] - sharded0
         if n_devices > 1 and mesh_batches <= 0:
             raise AssertionError("no K-band group went over the mesh")

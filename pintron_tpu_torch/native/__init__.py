@@ -326,9 +326,10 @@ _NP_SCRATCH = {}
 
 def dp_census():
     """Host-computed DP cells per family since the last reset (the
-    native counters in dp.c): the denominator side of bench.py's
-    device_cell_fraction.  Returns a dict, or None when the native
-    library (or an old build) lacks the counters."""
+    native counters in dp.c): the host side of the device share of DP
+    cells that STEP 2's ``est-fact device flow:`` line reports.  Returns
+    a dict, or None when the native library (or an old build) lacks the
+    counters."""
     lib = get_lib()
     if lib is None or not hasattr(lib, "dp_census_get"):
         return None

@@ -12,10 +12,9 @@ in ``pintron_tpu_torch.ops.align``:
     There is no fallback from a failed build or launch to the plain
     version.
 
-``LAUNCHES`` counts kernel launches per kernel, for these wrappers and
-for those of ``pintron_tpu_torch.ops.traceback`` and ``.pwm``; it and
-``KMAX`` live in ``ops/limits.py``, which a service client reads
-without loading torch.
+Each launch is counted in ``ops/limits.py``'s ``LAUNCHES``, and the
+widest band, ``KMAX``, is that module's too: a service client reads
+both without loading torch.
 """
 
 from __future__ import annotations
@@ -23,9 +22,7 @@ from __future__ import annotations
 import torch
 
 from pintron_tpu_torch.ops import align
-from pintron_tpu_torch.ops.limits import (  # noqa: F401 - kband's names
-    KMAX, LAUNCHES, reset_launches)
-from pintron_tpu_torch.ops.limits import count as _count
+from pintron_tpu_torch.ops.limits import KMAX, count
 
 
 def edit_layout(max_rows: int) -> tuple:
@@ -130,7 +127,7 @@ def banded_edit_distance_cuda(seq1, len1, seq2, len2, band, *,
             out.data_ptr(), B, max_rows, k_max, stream)
     if err:
         raise RuntimeError(f"kband_kernel launch failed: cudaError {err}")
-    _count("kband")
+    count("kband")
     return out
 
 
@@ -151,5 +148,5 @@ def batch_edit_distance_score_cuda(seq1, len1, seq2, len2, *,
         return out
     launch_edit_rows("edit_score", seq1, len1, seq2, len2, (out,), max_rows,
                      "K-band")
-    _count("edit_score")
+    count("edit_score")
     return out

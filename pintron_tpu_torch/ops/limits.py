@@ -7,9 +7,9 @@ loads torch.
 ``KMAX`` and ``MAX_WIDTH`` are the limits of ``ops/kband.py`` and
 ``ops/traceback.py``, which take them from here.  ``LAUNCHES`` counts
 kernel launches per kernel, for the wrappers of ``ops/kband.py``,
-``ops/traceback.py`` and ``ops/pwm.py`` (each ``kband.LAUNCHES``, the
-same dict).  Launches come from the offload's executor thread and its
-dispatch threads, so the count is taken under a lock.
+``ops/traceback.py`` and ``ops/pwm.py`` (``count``), and every reader
+reads it here.  Launches come from the offload's executor thread and
+its dispatch threads, so the count is taken under a lock.
 """
 
 from __future__ import annotations

@@ -616,7 +616,8 @@ def eval_kband(problems: List[Tuple[bytes, bytes, int]]):
 # made explicit across devices.  Each shard launches the same kernel on
 # its contiguous chunk of the group, and the distances come back in
 # order.  The DP is elementwise over problems, so the verdicts equal the
-# unsharded ones.
+# unsharded ones.  Unset or 1, a group goes to the batch's device whole,
+# with no mesh, as every other family's batch does.
 # The variable is the port's own: the JAX package's PINTRON_DEVICE_MESH
 # never reaches the port (run_est_fact refuses it).  Inside the device
 # service the service's own environment decides.
@@ -634,8 +635,9 @@ def _sharded_call(mesh, fn, arrays):
     ``mesh``: every numpy array split into contiguous chunks on its
     leading (problem) axis, one a shard, on the shard's device
     (``parallel.mesh.map_shards``).  Returns the per-problem distances in
-    order on the mesh's first device.  A mesh of one shard is the plain
-    call; each call over more adds one to ``STATS["mesh_batches"]``."""
+    order on the mesh's first device.  Each call over more than one
+    shard adds one to ``STATS["mesh_batches"]``; the offload calls it
+    only then (``_kband_launcher``)."""
     from pintron_tpu_torch.parallel.mesh import map_shards
     _load()
     if len(mesh.devices) > 1:
@@ -643,6 +645,19 @@ def _sharded_call(mesh, fn, arrays):
     outs = map_shards(mesh, lambda _dev, *chunk: (fn(*chunk),),
                       *from_numpy_batch(*arrays, device="cpu"))
     return torch.cat([d for d, in outs])
+
+
+def _kband_launcher(device):
+    """``launch(fn, arrays)``: a K-band wrapper ``fn`` on the numpy
+    ``arrays`` of one group, its distances on ``device``.  Without a
+    mesh the arrays go to ``device`` and ``fn`` runs there, as every
+    other family's batch does; with ``PINTRON_TORCH_MESH`` above 1 the
+    group is sharded over the mesh (``_sharded_call``)."""
+    n_shards = mesh_size()
+    if n_shards > 1:
+        from pintron_tpu_torch.parallel.mesh import make_mesh
+        return functools.partial(_sharded_call, make_mesh(n_shards, device))
+    return lambda fn, arrays: fn(*from_numpy_batch(*arrays, device=device))
 
 
 def _full_matrix(n: int, ub: int) -> bool:
@@ -710,8 +725,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
     # earlier groups' device work.  Each route's span runs from its
     # first launch until every result is read back, so the kernels run
     # inside the spans.
-    from pintron_tpu_torch.parallel.mesh import make_mesh
-    mesh = make_mesh(mesh_size(), device)
+    launch = _kband_launcher(device)
     pending = []
     with (timing.span("pintron_kband_full") if full_groups
           else contextlib.nullcontext()):
@@ -720,7 +734,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
             Bp = _p2(len(items), lo=64)
             s1, l1 = _encode([a for _, a, _, _ in items], N, rows=Bp)
             s2, l2 = _encode([b for _, _, b, _ in items], M, rows=Bp)
-            r = _sharded_call(mesh, functools.partial(
+            r = launch(functools.partial(
                 batch_edit_distance_score_cuda, max_rows=M),
                 [s1, l1, s2, l2])
             pending.append((items, r))
@@ -736,7 +750,7 @@ def _eval_kband_device(problems: List[Tuple[bytes, bytes, int]],
                 s2, l2 = _encode([b for _, _, b, _ in items], M, rows=Bp)
                 band = np.zeros(Bp, dtype=np.int32)
                 band[:len(items)] = [ub for _, _, _, ub in items]
-                r = _sharded_call(mesh, functools.partial(
+                r = launch(functools.partial(
                     banded_edit_distance_cuda, max_rows=M, k_max=K),
                     [s1, l1, s2, l2, band])
                 pending.append((items, r))

@@ -30,7 +30,8 @@ import torch
 
 from pintron_tpu_torch.factorize.pwm_data import (  # noqa: F401 - this
     _BASE, encode_windows, pwm_tables)             # module's names too
-from pintron_tpu_torch.ops.kband import _count, _cuda_launch_context
+from pintron_tpu_torch.ops.kband import _cuda_launch_context
+from pintron_tpu_torch.ops.limits import count
 
 
 def pwm_scores(base_idx: torch.Tensor, weighted_pwm: torch.Tensor,
@@ -89,5 +90,5 @@ def pwm_scores_cuda(base_idx: torch.Tensor, weighted_pwm: torch.Tensor,
                               stream)
     if err:
         raise RuntimeError(f"pwm_kernel launch failed: cudaError {err}")
-    _count("pwm")
+    count("pwm")
     return out

@@ -12,8 +12,8 @@ Same arguments and results as the plain versions in
     There is no fallback from a failed build or launch to the plain
     version.
 
-Launches are counted in ``pintron_tpu_torch.ops.kband.LAUNCHES``; the
-widest row the kernels take, ``MAX_WIDTH``, is ``ops/limits.py``'s.
+Launches are counted in ``ops/limits.py``'s ``LAUNCHES``; the widest
+row the kernels take, ``MAX_WIDTH``, is that module's too.
 """
 
 from __future__ import annotations
@@ -21,10 +21,9 @@ from __future__ import annotations
 import torch
 
 from pintron_tpu_torch.ops import align
-from pintron_tpu_torch.ops.kband import (_check_batch, _count,
-                                         _cuda_launch_context,
+from pintron_tpu_torch.ops.kband import (_check_batch, _cuda_launch_context,
                                          launch_edit_rows)
-from pintron_tpu_torch.ops.limits import MAX_WIDTH
+from pintron_tpu_torch.ops.limits import MAX_WIDTH, count
 
 
 def _check_width(name: str, width: int) -> None:
@@ -98,7 +97,7 @@ def _traceback_cuda(key: str, est, elen, gen, glen, max_n: int,
             stream)
     if err:
         raise RuntimeError(f"{key}_kernel launch failed: cudaError {err}")
-    _count(key)
+    count(key)
     return head, ops, nsteps
 
 
@@ -142,5 +141,5 @@ def batch_edit_rowmin_cuda(seq1, len1, seq2, len2, *, max_rows: int):
         return vals, pos
     launch_edit_rows("rowmin", seq1, len1, seq2, len2, (vals, pos),
                      max_rows, "rowmin")
-    _count("rowmin")
+    count("rowmin")
     return vals, pos

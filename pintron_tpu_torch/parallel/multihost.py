@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from pintron_tpu_torch.index import gst
-from pintron_tpu_torch.ops import kband, offload
+from pintron_tpu_torch.ops import limits, offload
 from pintron_tpu_torch.stages.est_fact import OUTPUT_NAMES
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -232,7 +232,7 @@ def child_main(spec: dict) -> int:
         counts, n_merged, digest = _collective(rank, nprocs, spec["store"],
                                                stats, blobs)
         timing["collective"] = round(time.monotonic() - t0, 3)
-        rec.update(stats=stats, launches=dict(kband.LAUNCHES),
+        rec.update(stats=stats, launches=dict(limits.LAUNCHES),
                    local_problems=stats["problems"], global_counts=counts,
                    local_candidates=len(_intron_candidates(blobs)),
                    merged_candidates=n_merged, merged_digest=digest)

@@ -25,7 +25,7 @@ or ``auto`` (``ops.offload.family_routes``).
 Each locus prints one line: ESTs, seconds, ESTs/s, the offload's
 counters per family, the device's share of the DP cells, each
 traceback family's problems left to the host for their size
-(``<family>_too_wide``) and the kernel launches (``ops.kband.LAUNCHES``;
+(``<family>_too_wide``) and the kernel launches (``ops.limits.LAUNCHES``;
 a ``cpu`` run launches none).  ``check_case`` does the work of one
 locus and returns it as a dict, for ``chip_smoke.py`` and the tests.
 The exit code is 1 when a case fails.
@@ -87,7 +87,7 @@ def check_case(case: str, device="cuda") -> dict:
     size), "differs" (what failed)}.  A failed case keeps its golden and work
     directories ("gold", "work")."""
     from pintron_tpu_torch.native import dp_census, dp_census_reset
-    from pintron_tpu_torch.ops import kband, offload
+    from pintron_tpu_torch.ops import limits, offload
     from pintron_tpu_torch.regression import STAGE2_ARTIFACTS, differing
     from pintron_tpu_torch.stages.est_fact import run_est_fact
 
@@ -104,7 +104,7 @@ def check_case(case: str, device="cuda") -> dict:
     try:
         offload.reset_stats()
         dp_census_reset()
-        before = dict(kband.LAUNCHES)
+        before = dict(limits.LAUNCHES)
         t0 = time.perf_counter()
         run_est_fact(work, device=device)
         dt = time.perf_counter() - t0
@@ -120,7 +120,7 @@ def check_case(case: str, device="cuda") -> dict:
                buckets={fam: {f"{n}x{m}": k for (n, m), k in
                               sorted(launched.items())}
                         for fam, launched in offload.BUCKETS.items()},
-               launches={k: kband.LAUNCHES[k] - before[k] for k in before},
+               launches={k: limits.LAUNCHES[k] - before[k] for k in before},
                host_cells=dp_census() or {})
     total = stats["device_cells"] + sum(res["host_cells"].values())
     res.update(device_share=stats["device_cells"] / total if total else 0.0,

@@ -3,8 +3,7 @@ from it as 1 to 6 exons with point mutations, some reverse-complemented,
 some with a poly-A tail.  A copy of ``make_case`` of the JAX package's
 ``tools/scale_stress.py``: for the same arguments it writes the same
 ``genomic.txt`` and ``ests.txt``, byte for byte.  The device fuzz
-(``pintron_tpu_torch.fuzz_device``) and the bench's stress channel
-(``pintron_tpu_torch.bench``) make their loci with it."""
+(``pintron_tpu_torch.fuzz_device``) makes its loci with it."""
 
 import os
 import random

@@ -210,7 +210,7 @@ def test_port_alone_reproduces_the_goldens(golden, tmp_path, what, case,
 
 
 def _entry_points():
-    from pintron_tpu_torch import batch, bench, fuzz_device, pipeline
+    from pintron_tpu_torch import batch, fuzz_device, pipeline
     import numpy as np
     from pintron_tpu_torch.graft_entry import dryrun_multichip, entry
     from pintron_tpu_torch.index.kmer import KmerIndex
@@ -228,7 +228,6 @@ def _entry_points():
         "batch.main":
             lambda w: batch.main(["--manifest", os.path.join(w, "jobs.tsv")]),
         "entry": lambda w: entry(),
-        "bench.main": lambda w: bench.main([]),
         "fuzz_device.main": lambda w: fuzz_device.main([]),
         "dryrun_multichip": lambda w: dryrun_multichip(2),
         "run_est_fact_multiprocess":
@@ -243,7 +242,7 @@ def _entry_points():
 @pytest.mark.parametrize("entry", ["run_est_fact", "run_intron_agreement",
                                    "precompute_bps_device",
                                    "pintron_pipeline", "pipeline.main",
-                                   "batch.main", "entry", "bench.main",
+                                   "batch.main", "entry",
                                    "fuzz_device.main", "dryrun_multichip",
                                    "run_est_fact_multiprocess",
                                    "multihost.main", "make_mesh",

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from pintron_tpu_torch.ops import align, kband
+from pintron_tpu_torch.ops import align, kband, limits
 
 CODES = np.concatenate([np.frombuffer(b"ACGTN*#n", dtype=np.int8),
                         np.array([-56, -1], dtype=np.int8)])
@@ -144,7 +144,7 @@ def cuda_device():
 
 def test_cpu_tensors_run_the_plain_versions():
     s1, l1, s2, l2, band = batch(1, 200, 80, 48, 8, "cpu")
-    kband.reset_launches()
+    limits.reset_launches()
     got = kband.banded_edit_distance_cuda(s1, l1, s2, l2, band,
                                           max_rows=48, k_max=8)
     want = align.banded_edit_distance(s1, l1, s2, l2, band, max_rows=48,
@@ -153,7 +153,7 @@ def test_cpu_tensors_run_the_plain_versions():
     got = kband.batch_edit_distance_score_cuda(s1, l1, s2, l2, max_rows=48)
     want = align.batch_edit_distance_score(s1, l1, s2, l2, max_rows=48)
     assert torch.equal(got, want)
-    assert not any(kband.LAUNCHES.values())
+    assert not any(limits.LAUNCHES.values())
 
 
 def test_non_cpu_tensors_never_run_the_plain_versions(monkeypatch):
@@ -193,7 +193,7 @@ def test_wrapper_rejects_malformed_batches(bad):
     (77, 96, 64, 8), (300, 1024, 256, 16), (129, 4096, 1024, 64)])
 def test_kernels_match_plain_on_card(cuda_device, B, n_cols, m_cols, k_max):
     s1, l1, s2, l2, band = batch(B, B, n_cols, m_cols, k_max, cuda_device)
-    before = dict(kband.LAUNCHES)
+    before = dict(limits.LAUNCHES)
     got = kband.banded_edit_distance_cuda(s1, l1, s2, l2, band,
                                           max_rows=m_cols, k_max=k_max)
     want = align.banded_edit_distance(s1, l1, s2, l2, band,
@@ -204,8 +204,8 @@ def test_kernels_match_plain_on_card(cuda_device, B, n_cols, m_cols, k_max):
     want = align.batch_edit_distance_score(s1, l1, s2, l2, max_rows=m_cols)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert kband.LAUNCHES["kband"] == before["kband"] + 1
-    assert kband.LAUNCHES["edit_score"] == before["edit_score"] + 1
+    assert limits.LAUNCHES["kband"] == before["kband"] + 1
+    assert limits.LAUNCHES["edit_score"] == before["edit_score"] + 1
 
 
 @pytest.mark.cuda

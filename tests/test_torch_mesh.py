@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from pintron_tpu_torch.graft_entry import entry
-from pintron_tpu_torch.ops import kband
+from pintron_tpu_torch.ops import limits
 from pintron_tpu_torch.parallel import mesh
 
 # (batch, n_max, max_rows, k_max, n_introns): entry()'s sizes and
@@ -132,11 +132,11 @@ def test_entry_on_the_card_equals_the_plain_step():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     fn, args = entry()
-    before = dict(kband.LAUNCHES)
+    before = dict(limits.LAUNCHES)
     got = fn(*args)
     torch.cuda.synchronize()
-    assert kband.LAUNCHES["kband"] == before["kband"] + 1
-    assert kband.LAUNCHES["pwm"] == before["pwm"] + 1
+    assert limits.LAUNCHES["kband"] == before["kband"] + 1
+    assert limits.LAUNCHES["pwm"] == before["pwm"] + 1
     want = mesh.plain_alignment_step(*args, **fn.keywords)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

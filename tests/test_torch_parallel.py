@@ -3,7 +3,8 @@
 (``ops.offload._sharded_call``), on the CPU, against the JAX package's
 ``parallel/mesh.py`` and ``ops/offload.py`` on JAX's 8 virtual CPU
 devices: distances, verdicts and supports exactly, scores within 1e-6
-(the JAX op adds its PWM columns in another order).  STEP 2 over a mesh
+(the JAX op adds its PWM columns in another order); without a mesh the
+K-band groups skip it.  STEP 2 over a mesh
 on real data and ``dryrun_multichip`` are in test_torch_multihost.py.
 
 JAX is imported inside the tests that compare with it, so the ``cuda``
@@ -171,6 +172,49 @@ def _compare_sharded_call(route, n):
     np.testing.assert_array_equal(dist.numpy(), jdist)
     assert int((dist <= torch.from_numpy(ub)).sum()) == jtotal
     assert 0 < jtotal < len(probs)
+
+
+@pytest.mark.parametrize("route", ["band", "full"])
+def test_a_mesh_of_one_is_the_plain_call(route, monkeypatch):
+    """With PINTRON_TORCH_MESH unset, _eval_kband_device sends each
+    K-band group to the batch's device whole: the verdicts of ep_kband
+    and of the JAX entry, neither _sharded_call nor map_shards called,
+    STATS["mesh_batches"] unchanged.  At 2 the same batch gives the
+    same verdicts, and each group is one sharded batch."""
+    from pintron_tpu.ops import offload as joff
+    from pintron_tpu_torch.native import get_lib
+    from test_device_offload import _host_ep_kband_ok
+    lib = get_lib()
+    if lib is None:
+        pytest.skip("native library unavailable")
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(offload, "_sharded_call",
+                        spy("_sharded_call", offload._sharded_call))
+    monkeypatch.setattr(mesh, "map_shards", spy("map_shards", mesh.map_shards))
+    monkeypatch.delenv(offload.MESH_ENV, raising=False)
+    probs = _problems(np.random.default_rng(17), route)
+    want = [_host_ep_kband_ok(lib, a, b, ub) for a, b, ub in probs]
+    np.testing.assert_array_equal(joff.eval_kband(probs), want)
+    for shards, sharded in ((None, False), ("2", True)):
+        if shards:
+            monkeypatch.setenv(offload.MESH_ENV, shards)
+        st0 = dict(offload.STATS)
+        got = offload._eval_kband_device(probs, torch.device("cpu"))
+        np.testing.assert_array_equal(got, want)
+        groups = offload.STATS["batches"] - st0["batches"]
+        assert groups >= 1
+        assert (offload.STATS["mesh_batches"] - st0["mesh_batches"]
+                == (groups if sharded else 0))
+        assert calls == (["_sharded_call", "map_shards"] * groups
+                         if sharded else [])
+        calls.clear()
 
 
 def test_the_jax_mesh_switch_is_refused(tmp_path, monkeypatch):

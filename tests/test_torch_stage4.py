@@ -20,7 +20,7 @@ import torch
 from pintron_tpu_torch import pipeline
 from pintron_tpu_torch.factorize import classify
 from pintron_tpu_torch.native import get_lib
-from pintron_tpu_torch.ops import kband, offload, pwm
+from pintron_tpu_torch.ops import limits, offload, pwm
 from pintron_tpu_torch.stages import intron_agreement
 
 STAGE4 = ("out-after-intron-agree.txt", "predicted-introns.txt")
@@ -111,10 +111,10 @@ def test_pwm_wrapper_checks_and_dispatch():
     wpwm, den = pwm.pwm_tables("BPS_9")
     codes = torch.from_numpy(random_windows(4, 33, 12))
     w = torch.from_numpy(wpwm)
-    kband.reset_launches()
+    limits.reset_launches()
     assert torch.equal(pwm.pwm_scores_cuda(codes, w, den),
                        pwm.pwm_scores(codes, w, den))
-    assert kband.LAUNCHES["pwm"] == 0
+    assert limits.LAUNCHES["pwm"] == 0
     for bad in (codes.long(), codes[:, :10], codes.t()):
         with pytest.raises(ValueError):
             pwm.pwm_scores_cuda(bad, w, den)
@@ -351,13 +351,13 @@ def test_pwm_kernel_bit_equal_to_plain_on_card(cuda_device, B, name):
     wpwm, den = pwm.pwm_tables(name)
     codes = torch.from_numpy(random_windows(B, B, 12)).to(cuda_device)
     w = torch.from_numpy(wpwm).to(cuda_device)
-    before = kband.LAUNCHES["pwm"]
+    before = limits.LAUNCHES["pwm"]
     got = pwm.pwm_scores_cuda(codes, w, den)
     want = pwm.pwm_scores(codes, w, den)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), pwm.pwm_scores(codes.cpu(), w.cpu(), den))
-    assert kband.LAUNCHES["pwm"] == before + 1
+    assert limits.LAUNCHES["pwm"] == before + 1
 
 
 @pytest.mark.cuda

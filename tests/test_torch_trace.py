@@ -279,17 +279,30 @@ def test_fork_workers_send_their_spans_back(sharded):
         assert any(n.startswith("pintron_step2_") for n in below)
 
 
-def test_measure_step2_reads_the_workers_from_their_spans(sharded):
-    from pintron_tpu_torch.measure_step2 import _worker_records
+def test_each_workers_service_calls_lie_inside_its_span(sharded):
+    """Every ``pintron_service_call`` of the client lies under one fork
+    worker's ``pintron_est_worker`` (the dispatch threads' spans keep
+    their worker as an ancestor), and each worker waited on its round
+    trips for part of its wall, after the call began."""
     client, _service = sharded
+    by_id = {s.id: s for s in client}
     call = min(s.start for s in client)
-    records = _worker_records(client, call)
+    workers = {s.id: s for s in client if s.name == "pintron_est_worker"}
+    waits = {w: [] for w in workers}
+    for s in client:
+        if s.name != "pintron_service_call":
+            continue
+        up = by_id.get(s.parent)
+        while up is not None and up.id not in workers:
+            up = by_id.get(up.parent)
+        if up is not None:
+            waits[up.id].append(s.end - s.start)
     calls = sum(1 for s in client if s.name == "pintron_service_call")
-    assert len(records) == 2
-    assert sum(r["requests"] for r in records) == calls
-    for r in records:
-        assert r["start_ms"] >= 0 and r["cpu_ms"] > 0
-        assert 0 < r["wait_ms"] < r["wall_ms"]
+    assert len(workers) == 2
+    assert sum(len(w) for w in waits.values()) == calls
+    for w in workers.values():
+        assert w.start - call >= 0 and w.attrs["cpu_s"] > 0
+        assert 0 < sum(waits[w.id]) < w.end - w.start
 
 
 def test_service_requests_arrive_before_their_evaluation(sharded):

@@ -20,7 +20,7 @@ from pintron_tpu.factorize.alignments import (_compute_alignment_uncached,
                                               edit_distance_full)
 from pintron_tpu.factorize.gap_align import _compute_gap_alignment_uncached
 from pintron_tpu.native import get_lib
-from pintron_tpu_torch.ops import align, kband, offload, traceback
+from pintron_tpu_torch.ops import align, kband, limits, offload, traceback
 
 ACGT = np.array(list("ACGT"))
 WILD = np.array(list("ACGTNn"))
@@ -576,21 +576,21 @@ def test_cpu_tensors_run_the_plain_traceback(name, wrapper, plain):
     s1, l1, s2, l2 = encode(gap_cases(50, count=20))
     args = _torch(s1, l1, s2, l2)
     kw = dict(max_n=s1.shape[1], max_m=s2.shape[1])
-    kband.reset_launches()
+    limits.reset_launches()
     for got, want in zip(wrapper(*args, **kw), plain(*args, **kw)):
         assert torch.equal(got, want), name
-    assert not any(kband.LAUNCHES.values())
+    assert not any(limits.LAUNCHES.values())
 
 
 def test_cpu_tensors_run_the_plain_rowmin():
     s1, l1, s2, l2 = encode([(g, e) for e, g in gap_cases(51, count=20)])
     args = _torch(s1, l1, s2, l2)
-    kband.reset_launches()
+    limits.reset_launches()
     for got, want in zip(
             traceback.batch_edit_rowmin_cuda(*args, max_rows=s2.shape[1]),
             align.batch_edit_rowmin(*args, max_rows=s2.shape[1])):
         assert torch.equal(got, want)
-    assert not any(kband.LAUNCHES.values())
+    assert not any(limits.LAUNCHES.values())
 
 
 def test_non_cpu_tensors_never_run_the_plain_versions(monkeypatch):
@@ -653,13 +653,13 @@ def test_traceback_kernels_match_plain_on_card(cuda_device, name, wrapper,
     s1, l1, s2, l2 = encode(gap_cases(60) + nw_cases(61), pad=pad)
     args = _torch(s1, l1, s2, l2, device=cuda_device)
     kw = dict(max_n=s1.shape[1], max_m=s2.shape[1])
-    before = kband.LAUNCHES[name]
+    before = limits.LAUNCHES[name]
     got = wrapper(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w), name
-    assert kband.LAUNCHES[name] == before + 1
+    assert limits.LAUNCHES[name] == before + 1
 
 
 @pytest.mark.cuda
@@ -688,7 +688,7 @@ def test_rowmin_kernel_matches_plain_on_card(cuda_device, pad):
     s1, l1, s2, l2 = encode([(g, e) for e, g in gap_cases(62)], pad=pad)
     args = _torch(s1, l1, s2, l2, device=cuda_device)
     R = s2.shape[1]
-    before = kband.LAUNCHES["rowmin"]
+    before = limits.LAUNCHES["rowmin"]
     vals, pos = traceback.batch_edit_rowmin_cuda(*args, max_rows=R)
     pv, pp = align.batch_edit_rowmin(*args, max_rows=R)
     torch.cuda.synchronize()
@@ -696,7 +696,7 @@ def test_rowmin_kernel_matches_plain_on_card(cuda_device, pad):
             <= args[3][:, None].long())
     assert torch.equal(vals[live], pv[live])
     assert torch.equal(pos[live], pp[live])
-    assert kband.LAUNCHES["rowmin"] == before + 1
+    assert limits.LAUNCHES["rowmin"] == before + 1
 
 
 @pytest.mark.cuda
@@ -711,13 +711,13 @@ def test_nw_kernel_main_path_shapes_on_card(cuda_device, index):
     est, elen, gen, glen, N, M = main_path_nw_batch(
         MAIN_PATH_NW_SHAPES[index], index)
     args = _torch(est, elen, gen, glen, device=cuda_device)
-    before = kband.LAUNCHES["nw"]
+    before = limits.LAUNCHES["nw"]
     got = traceback.batch_nw_traceback_cuda(*args, max_n=N, max_m=M)
     want = align.batch_nw_traceback(*args, max_n=N, max_m=M)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert kband.LAUNCHES["nw"] == before + 1
+    assert limits.LAUNCHES["nw"] == before + 1
 
 
 @pytest.mark.cuda
@@ -732,13 +732,13 @@ def test_gap_kernel_main_path_shapes_on_card(cuda_device, index):
         MAIN_PATH_GAP_SHAPES[index], index)
     assert traceback.gap_rows(N) == 2
     args = _torch(est, elen, gen, glen, device=cuda_device)
-    before = kband.LAUNCHES["gap"]
+    before = limits.LAUNCHES["gap"]
     got = traceback.batch_gap_traceback_cuda(*args, max_n=N, max_m=M)
     want = align.batch_gap_traceback(*args, max_n=N, max_m=M)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert kband.LAUNCHES["gap"] == before + 1
+    assert limits.LAUNCHES["gap"] == before + 1
 
 
 # ---- the edit-row sweep of rowmin_kernel and edit_score_kernel -------------
@@ -1012,7 +1012,7 @@ def test_rowmin_kernel_main_path_launches_on_card(cuda_device, index):
     s1, l1, s2, l2, M = main_path_rb_batch(MAIN_PATH_RB_SHAPES[index],
                                            index)
     args = _torch(s1, l1, s2, l2, device=cuda_device)
-    before = kband.LAUNCHES["rowmin"]
+    before = limits.LAUNCHES["rowmin"]
     got = traceback.batch_edit_rowmin_cuda(*args, max_rows=M)
     want = align.batch_edit_rowmin(*args, max_rows=M)
     torch.cuda.synchronize()
@@ -1020,7 +1020,7 @@ def test_rowmin_kernel_main_path_launches_on_card(cuda_device, index):
             <= args[3][:, None].long())
     for g, w in zip(got, want):
         assert torch.equal(g[live], w[live])
-    assert kband.LAUNCHES["rowmin"] == before + 1
+    assert limits.LAUNCHES["rowmin"] == before + 1
 
 
 @pytest.mark.cuda
